@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C entry point and no PyTorch headers,
+so ``nvcc`` builds it in seconds into ``build/torch_ext/`` at the root of
+the checkout (``.gitignore`` lists ``build/``), and ``ctypes`` loads it.
+The library's file name carries a hash of its source and flags, so a
+changed source is rebuilt and an unchanged one is reused.  All sources
+build in parallel, one ``nvcc`` each.  Nothing here runs at import time:
+the CPU tests import this module on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_ROOT, "microflow_tpu_torch", "csrc")
+BUILD_DIR = os.path.join(_ROOT, "build", "torch_ext")
+
+# -fmad=false: the epilogues must round the multiply and the add
+# separately (the kernels also spell them out with __fmul_rn/__fadd_rn).
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-fmad=false", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_L = ctypes.c_longlong
+
+# C signature of each kernel's entry point: (symbol, argtypes).
+SIGNATURES = {
+    "qgemm": ("mf_qgemm", [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _I, _I, _P]),
+    "qdwconv": ("mf_qdwconv",
+                [_P, _P, _P, _P, _P, _P] + [_I] * 10 + [_F, _F, _I, _P]),
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME is unset); cannot build kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _target(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def build_all(names=tuple(SIGNATURES)) -> dict[str, str]:
+    """Build every named kernel that is not built yet, one ``nvcc`` per
+    source, all started together.  Returns name -> library path; raises
+    with the compiler's output if any build fails.  ``ptxas -v`` output
+    (registers, shared memory, spills) goes to ``<library>.log``."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    procs = {}
+    for n, so in targets.items():
+        if os.path.exists(so):
+            continue
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True), tmp)
+    failed = []
+    for n, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        with open(targets[n] + ".log", "w") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            failed.append(f"{n}: nvcc exit {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, targets[n])
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return targets
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = build_all((name,))[name]
+        lib = ctypes.CDLL(path)
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error (``cudaError_t`` code)."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")

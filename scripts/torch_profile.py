@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Where the time goes in the torch port's person_detect forward on one
+CUDA card (an H100).
+
+    python3 scripts/torch_profile.py [--batch 8192] [--iters 3] [--trace PATH]
+
+Runs ``predict_inner`` of ``microflow_tpu_torch`` (default backend: the
+hand-written kernels) under ``torch.profiler`` and prints one JSON line:
+the wall time per forward, the device-busy share of it, device time per
+kernel name grouped into the port's kernels and PyTorch's own, and the
+top PyTorch operators by device time.  ``--trace`` also writes the
+Chrome trace.  Needs CUDA; fails without it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from microflow_tpu_torch.models import person_detect  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=8192)
+    ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--trace", help="write the Chrome trace to this path")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_profile: CUDA is not available", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    m = person_detect()
+    rng = np.random.default_rng(0)
+    xq = torch.from_numpy(rng.integers(-128, 128, (args.batch, 96, 96, 1), dtype=np.int8)).cuda()
+    for _ in range(2):
+        m.predict_inner(xq)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            m.predict_inner(xq)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+
+    kernels: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.device_time_total / 1e3
+    per_fwd = {k: v / args.iters for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])}
+    ours = {k: v for k, v in per_fwd.items() if "qgemm_kernel" in k or "qdwconv_kernel" in k}
+    device_ms = sum(per_fwd.values())
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    top_ops = [{"op": e.key, "device_ms_per_forward": e.self_device_time_total / 1e3 / args.iters,
+                "calls_per_forward": e.count / args.iters} for e in ops[:15]
+               if e.self_device_time_total > 0]
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(json.dumps({
+        "model": "person_detect", "backend": m.backend, "batch": args.batch, "device": smi,
+        "wall_ms_per_forward": wall_ms, "device_ms_per_forward": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "port_kernels_ms_per_forward": sum(ours.values()),
+        "other_kernels_ms_per_forward": device_ms - sum(ours.values()),
+        "kernels_ms_per_forward": {k[:120]: v for k, v in list(per_fwd.items())[:25]},
+        "top_ops": top_ops,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

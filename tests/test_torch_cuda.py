@@ -1,0 +1,108 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here carries the ``cuda`` marker and skips without a card.
+This file imports neither JAX nor ``microflow_tpu``, so it runs on the
+card's machine:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+(``python3 chip_smoke.py`` covers the same ground at every layer shape
+of the three models.)  The case builders are shared with
+``test_torch_kernels.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from microflow_tpu_torch import compile_tflite
+from microflow_tpu_torch.core import FusedActivation as TAct
+from microflow_tpu_torch.kernels import (
+    LAUNCHES,
+    qdwconv,
+    qdwconv_reference,
+    qgemm,
+    qgemm_reference,
+)
+from microflow_tpu_torch.models import GOLDENS, model_path
+
+F32 = np.float32
+
+
+def gemm_case(rng, M, K, N, w_zp, in_zp):
+    x = rng.integers(-128, 128, (M, K), dtype=np.int8)
+    w = rng.integers(-128, 128, (K, N), dtype=np.int8)
+    wzp = np.asarray(np.broadcast_to(w_zp, (N,)), np.int32)
+    d = (K * in_zp * wzp - in_zp * w.astype(np.int64).sum(0)).astype(np.int32)
+    bias0 = (F32(4) + rng.normal(0, 3, N)).astype(F32)
+    c1 = rng.uniform(1e-4, 5e-3, N).astype(F32)
+    return x, w, wzp, d, bias0, c1
+
+
+def torch_args(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def dw_case(rng, B, H, W, C, kh, kw, sr, sc, in_zp):
+    oh, ow = -(-H // sr), -(-W // sc)
+    top, left = (kh - 1) // 2, (kw - 1) // 2
+    bottom = max(0, sr * (oh - 1) + kh - 1 - top - (H - 1))
+    right = max(0, sc * (ow - 1) + kw - 1 - left - (W - 1))
+    x = rng.integers(-128, 128, (B, H, W, C), dtype=np.int8)
+    xp = np.pad(x, ((0, 0), (top, bottom), (left, right), (0, 0)), constant_values=in_zp)
+    w = rng.integers(-128, 128, (kh, kw, C), dtype=np.int8)
+    w_zp = rng.integers(-5, 6, C).astype(np.int32)
+    wc = w.astype(np.int32) - w_zp[None, None, :]
+    d = (-in_zp * wc.sum(axis=(0, 1))).astype(np.int32)
+    bias0 = (F32(-1) + rng.normal(0, 3, C)).astype(F32)
+    c1 = rng.uniform(0.001, 0.01, C).astype(F32)
+    return xp, wc, d, bias0, c1, dict(kh=kh, kw=kw, sr=sr, sc=sc, oh=oh, ow=ow)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(5, 37, 11), (1000, 1, 16), (513, 130, 129), (64, 4000, 4)])
+def test_qgemm_kernel_matches_plain(cuda, M, K, N):
+    rng = np.random.default_rng(M + K + N)
+    args = [a.to(cuda) for a in torch_args(*gemm_case(rng, M, K, N, rng.integers(-4, 4, N), 5))]
+    for act in TAct:
+        kw = dict(activation=act, out_scale=0.04, out_zp=-3)
+        n = LAUNCHES["qgemm"]
+        assert torch.equal(qgemm(*args, **kw), qgemm_reference(*args, **kw))
+        assert LAUNCHES["qgemm"] == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,kh,kw,sr,sc", [(3, 9, 9, 5, 3, 3, 2, 2),
+                                                (4, 49, 40, 8, 10, 8, 2, 2),
+                                                (8, 12, 12, 64, 3, 3, 1, 1)])
+def test_qdwconv_kernel_matches_plain(cuda, B, H, W, C, kh, kw, sr, sc):
+    rng = np.random.default_rng(C)
+    xp, wc, d, bias0, c1, geo = dw_case(rng, B, H, W, C, kh, kw, sr, sc, in_zp=-3)
+    args = [a.to(cuda) for a in torch_args(xp, wc, d, bias0, c1)]
+    for act in TAct:
+        kwargs = dict(activation=act, out_scale=0.05, out_zp=2, **geo)
+        n = LAUNCHES["qdwconv"]
+        assert torch.equal(qdwconv(*args, **kwargs), qdwconv_reference(*args, **kwargs))
+        assert LAUNCHES["qdwconv"] == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sine", "speech", "person_detect"])
+def test_models_on_the_card(cuda, name):
+    """Goldens through the default backend (the kernels), and the kernel
+    backend bit-equal to the plain backend on random inputs."""
+    x, want = GOLDENS[name]
+    m = compile_tflite(model_path(name))
+    assert m.backend == "pallas"
+    assert np.array_equal(m.predict(x).cpu().numpy(), want)
+    plain = compile_tflite(model_path(name), backend="xla")
+    rng = np.random.default_rng(5)
+    xq = torch.from_numpy(rng.integers(-128, 128, (64, *m.graph.input_shape), dtype=np.int8))
+    assert torch.equal(m.predict_inner(xq.to(cuda)), plain.predict_inner(xq.to(cuda)))
