@@ -8,24 +8,43 @@ the kernels are built for ``sm_90a``).  Phases, each printing one JSON
 line; any failure raises and the script exits non-zero:
 
 1. device: CUDA must be present; the card's name and power limit.
-2. build: both kernels from ``microflow_tpu_torch/csrc/`` with ``nvcc``.
-3. kernels: each kernel held bit-equal against its plain torch version at
-   every layer shape of sine, speech and person_detect (batch 64) and on
-   edge cases; then timed at person_detect's shapes at batch 8192 beside
-   its plain version, ``torch._int_mm`` (qgemm only) and its bound.
-4. main path: the three Rust goldens through ``compile_tflite(...)`` with
-   the default backend (the kernels on CUDA), with the launch counts of
-   the person_detect requests.
-5. whole model: the kernel backend bit-equal to the plain torch backend
-   on random int8 inputs, batch 1024, all three models.
-6. throughput: person_detect ``predict_inner`` inferences/s at batch 8192
-   and 32768.
+2. build: the four kernels of ``microflow_tpu_torch/csrc/`` with ``nvcc``,
+   in parallel.
+3. kernels: each kernel held bit-equal against its plain torch version:
+   ``qgemm``/``qdwconv`` at every layer shape of sine, speech and
+   person_detect (batch 64) and on edge cases; ``flatpack`` on
+   person_detect (whole, and its first 2 and 12 layers), speech and sine at
+   batches 64, 3 and 0, and on a small conv graph (and two prefixes) whose
+   ops take the kernel's general paths; ``colfc`` on sine in both compute modes at batch
+   1000; both whole-network kernels on two small FC graphs whose constants
+   put the epilogue on the ``exact2`` corners, on +-k.5 and the ulps around
+   them, past both rails, and on multiply-add triples that an FMA would
+   round otherwise.  Then each is timed beside its plain version and its
+   bound: the per-op kernels at person_detect's shapes at batch 8192
+   (``qgemm`` also beside ``torch._int_mm``), ``flatpack`` on person_detect
+   and speech at batch 8192, ``colfc`` on sine at batch 1,048,576.
+4. main paths, each driven with the launch counts set to 0 just before it
+   and read just after: the three Rust goldens through ``compile_tflite``
+   with the default backend (``"flat"`` for person_detect and speech,
+   ``"pallas"`` for sine) and 4 person_detect requests (4 ``flatpack``
+   launches, no per-op kernel); the same 4 requests through
+   ``backend="pallas"`` (slice 1's path: 14 ``qgemm`` and 14 ``qdwconv``
+   launches a forward); 4 sine requests through ``backend="colfc"``.
+5. whole model: ``flat``, ``pallas`` and (sine) ``colfc`` bit-equal to the
+   plain torch backend ``xla`` on random int8 inputs, batch 1024.
+6. throughput: ``predict_inner`` inferences/s of person_detect through
+   ``flat`` and ``pallas`` in turns (flat, pallas, pallas, flat) at batch
+   8192 and 32768, and of speech at batch 8192.
 
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  In the kernels line ``launches`` is the
-count from phase 4's requests; ``ms``, ``plain_ms``, ``bound_ms`` and
-``library_ms`` are sums over the kernel's 14 launches in one person_detect
-forward at batch 8192 (phase 3, per launch in the ``kernel_times`` line).
+count from the kernel's main path in phase 4; ``ms``, ``plain_ms``,
+``bound_ms`` and ``library_ms`` are, for ``qgemm`` and ``qdwconv``, sums
+over their 14 launches in one person_detect forward at batch 8192 (per
+launch in the ``kernel_times`` line), for ``flatpack`` one person_detect
+forward at batch 8192, for ``colfc`` one sine forward at batch 1,048,576.
+No single PyTorch call computes a whole network, so the whole-network
+kernels have no ``library_ms``.
 """
 
 from __future__ import annotations
@@ -39,9 +58,29 @@ import numpy as np
 import torch
 
 import microflow_tpu_torch.kernels as kernels
-from microflow_tpu_torch import compile_tflite
+from microflow_tpu_torch import compile_tflite, parse
+from microflow_tpu_torch.compiler.ir import (
+    AveragePool2DLayer,
+    Conv2DLayer,
+    DepthwiseConv2DLayer,
+    FullyConnectedLayer,
+    Graph,
+    QuantInfo,
+    ReshapeLayer,
+    SoftmaxLayer,
+)
 from microflow_tpu_torch.core.activation import FusedActivation
-from microflow_tpu_torch.kernels import LAUNCHES, build
+from microflow_tpu_torch.core.numerics import np_epilogue, np_exact2, np_round_away
+from microflow_tpu_torch.core.tensor import ViewGeometry, ViewPadding
+from microflow_tpu_torch.kernels import (
+    LAUNCHES,
+    build,
+    build_col_kernel,
+    build_flat_kernel,
+    colfc_reference,
+    flat_forward_reference,
+)
+from microflow_tpu_torch.kernels.flatpack import flat_bound
 from microflow_tpu_torch.models import GOLDENS, model_path
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
@@ -55,7 +94,12 @@ KERNEL_INFO = {
               "replaces": "microflow_tpu/kernels/qgemm.py:63"},
     "qdwconv": {"source": "microflow_tpu_torch/csrc/qdwconv.cu",
                 "replaces": "microflow_tpu/kernels/qdwconv.py:81"},
+    "flatpack": {"source": "microflow_tpu_torch/csrc/flatpack.cu",
+                 "replaces": "microflow_tpu/kernels/flatpack.py:662"},
+    "colfc": {"source": "microflow_tpu_torch/csrc/colfc.cu",
+              "replaces": "microflow_tpu/kernels/colfc.py:89"},
 }
+PD_FORWARD = {"qgemm": 14, "qdwconv": 14}  # per-op launches in one person_detect forward
 ACTS = (FusedActivation.NONE, FusedActivation.RELU, FusedActivation.RELU6)
 
 
@@ -130,9 +174,11 @@ def random_input(model, batch: int, rng) -> torch.Tensor:
 # --- edge cases ---------------------------------------------------------------
 
 
-def _round_away(y: np.ndarray) -> np.ndarray:
-    t = np.trunc(y)
-    return t + np.sign(y) * (np.abs(y - t) >= 0.5)
+def fma_hits(q, b0, c1, rnd=np_round_away) -> np.ndarray:
+    """Indices where ``b0 + c1*f32(q)`` rounds (by ``rnd``) to another
+    integer as one fused multiply-add than as a multiply then an add."""
+    sep, fma = np_epilogue(c1, np.asarray(q).astype(np.float32), b0)
+    return np.nonzero(rnd(sep) != rnd(fma))[0]
 
 
 def epilogue_triples(rng, n: int):
@@ -156,10 +202,7 @@ def epilogue_triples(rng, n: int):
     rq = rng.integers(-(2**20), 2**20, m)
     rc = rng.uniform(1e-4, 0.05, m).astype(np.float32)
     rb = rng.uniform(-150.0, 150.0, m).astype(np.float32)
-    qf = rq.astype(np.float32)
-    sep = rb + rc * qf  # f32 multiply, then f32 add
-    fma = (rb.astype(np.float64) + rc.astype(np.float64) * qf.astype(np.float64)).astype(np.float32)
-    hit = np.nonzero(_round_away(sep) != _round_away(fma))[0][:64]
+    hit = fma_hits(rq, rb, rc)[:64]
     pick = np.concatenate([hit, rng.integers(0, m, max(0, n - len(q) - len(hit)))])
     q += rq[pick].tolist()
     b0 += rb[pick].tolist()
@@ -209,6 +252,172 @@ def edge_cases(dev, rng) -> dict:
                               f32(rng.normal(0, 20, C)), f32(rng.uniform(1e-4, 0.01, C))), kw,
                   f"{kh}x{kw_}/({sr},{sc}) C{C} {act.value}")
     return errs
+
+
+def _fc(index: int, w: np.ndarray, bias0, c1: float, act: FusedActivation,
+        out_scale: float) -> FullyConnectedLayer:
+    """A FullyConnected layer of the port's IR with all zero points 0, so
+    ``acc = sum x*w`` and ``y = bias0 + c1*f32(acc)``."""
+    q = lambda s: QuantInfo(np.array([s], np.float32), np.zeros(1, np.int64))
+    n = w.shape[1]
+    return FullyConnectedLayer(
+        index=index, weights=w.astype(np.int8), in_q=q(1.0), w_q=q(1.0), bias_q=q(1.0),
+        out_q=q(out_scale), c0=np.asarray(bias0, np.float32), c1=np.float32(c1),
+        c2=np.zeros(n, np.int32), c3=0, activation=act, flatten_input=False, out_shape=(n,))
+
+
+def edge_graph(name, w_row, bias0, c1: float, act=FusedActivation.NONE,
+               out_scale: float = 0.05) -> Graph:
+    """int8 [B, 1] -> FC 1->1 (y = x exactly) -> FC 1->N with weights
+    ``w_row`` and epilogue constants ``bias0``, ``c1``: lane n of a sample
+    with input x computes y = bias0[n] + c1*f32(x * w_row[n]).  Both
+    whole-network kernels take it."""
+    q = QuantInfo(np.array([1.0], np.float32), np.zeros(1, np.int64))
+    n = len(w_row)
+    layers = [_fc(0, np.ones((1, 1)), [0.0], 1.0, FusedActivation.NONE, 1.0),
+              _fc(1, np.asarray(w_row).reshape(1, n), bias0, c1, act, out_scale)]
+    return Graph(name=name, layers=layers, input_shape=(1,), input_q=q,
+                 input_dtype=np.dtype(np.int8), output_shape=(n,), output_q=q,
+                 output_dtype=np.dtype(np.int8))
+
+
+def edge_graphs(rng) -> tuple[list, int]:
+    """The epilogue edge graphs and the count of FMA-sensitive lanes.  With
+    c1 = 1 (y = b0 + x*w): the b0 of ``epilogue_triples``'s first block
+    (+-0.5 and the ulps around it) on w = 1 lanes put y on every +-k.5 and
+    its neighbours as x sweeps int8, and on w = 0 lanes on the ``exact2``
+    corners +-(0.5 - 2**-25) themselves; w = 127 and -128 lanes and b0 =
+    +-1e9 go past both rails; once with no activation and once with RELU6
+    (clip to [0, 60]).  With a fixed c1 = 0.37: lanes (w, b0) on which some
+    int8 x gives a triple that an FMA would round otherwise."""
+    q, b0, c1, _ = epilogue_triples(rng, 0)
+    halves = sorted(set(b0[(c1 == 1.0)].tolist()))
+    w_row = [1] * len(halves) + [0] * len(halves) + [127, -128, 0, 0, 127, -128]
+    bias = halves + halves + [0.0, 0.0, 1e9, -1e9, 0.25, -0.25]
+    graphs = [edge_graph("edge_c1_one", w_row, bias, 1.0),
+              edge_graph("edge_c1_one_relu6", w_row, bias, 1.0, FusedActivation.RELU6, 0.1)]
+    c1_fixed = np.float32(0.37)
+    m = 4_000_000
+    x = rng.integers(-128, 128, m)
+    w = rng.integers(-128, 128, m)
+    b = rng.uniform(-150.0, 150.0, m).astype(np.float32)
+    hit = fma_hits(x * w, b, np.full(m, c1_fixed), np_exact2)[:32]
+    graphs.append(edge_graph("edge_fma", w[hit].tolist(), b[hit].tolist(), float(c1_fixed)))
+    return graphs, len(hit)
+
+
+def conv_graph(rng) -> Graph:
+    """A small conv graph of the port's IR, random weights, whose ops take
+    the flat kernel's general paths, which the bundled models do not
+    reach: a depth-multiplier stem to 6 channels, a 3x3/s2 Conv2D over 6
+    channels, depthwise convs over 5 channels, a 1x1 conv over 5 channels
+    and one to 6 outputs, a padded 2x2 pool, FC and softmax over 7; also a
+    depthwise and a 1x1 conv on the ``__dp4a`` paths."""
+    q = lambda zp: QuantInfo(np.array([rng.uniform(0.01, 0.1)], np.float32),
+                             np.array([zp], np.int64))
+    zps = iter(rng.integers(-128, 100, 16).tolist())
+    acts = (FusedActivation.NONE, FusedActivation.RELU, FusedActivation.RELU6)
+    layers, shape, in_q = [], (13, 11, 1), q(-5)
+    input_q = in_q
+
+    def geom(k, s, pad):
+        h, w = shape[:2]
+        oh, ow = ((-(-h // s), -(-w // s)) if pad is ViewPadding.SAME
+                  else ((h - k) // s + 1, (w - k) // s + 1))
+        return ViewGeometry(h, w, k, k, oh, ow, s, s, pad)
+
+    def add(kind, *spec):
+        nonlocal shape, in_q
+        i = len(layers)
+        out_q = q(next(zps))
+        act = acts[i % 3]
+        if kind in ("conv", "dw"):
+            k, s, c_out = spec
+            g = geom(k, s, ViewPadding.SAME)
+            c1 = rng.uniform(1e-3, 1e-2, c_out).astype(np.float32)
+            c0 = rng.normal(0, 20, c_out).astype(np.float32)
+            w_q = QuantInfo(np.ones(1, np.float32), np.zeros(1, np.int64))
+            if kind == "conv":
+                f = rng.integers(-127, 128, (c_out, k, k, shape[2])).astype(np.int8)
+                layers.append(Conv2DLayer(i, f, in_q, w_q, w_q, out_q, c0, c1, g, act,
+                                          (g.out_rows, g.out_cols, c_out)))
+            else:
+                w = rng.integers(-127, 128, (k, k, c_out)).astype(np.int8)
+                layers.append(DepthwiseConv2DLayer(i, w, in_q, w_q, w_q, out_q, c0, c1, g,
+                                                   act, (g.out_rows, g.out_cols, c_out)))
+            shape = (g.out_rows, g.out_cols, c_out)
+        elif kind == "pool":
+            g = geom(2, 2, ViewPadding.SAME)
+            layers.append(AveragePool2DLayer(i, in_q, out_q, np.float32(0.9), np.float32(3.0),
+                                             g, act, (g.out_rows, g.out_cols, shape[2])))
+            shape = (g.out_rows, g.out_cols, shape[2])
+        elif kind == "reshape":
+            shape = (int(np.prod(shape)),)
+            layers.append(ReshapeLayer(i, shape, in_q))
+            out_q = in_q
+        elif kind == "fc":
+            (n,) = spec
+            w = rng.integers(-127, 128, (shape[0], n)).astype(np.int8)
+            layers.append(FullyConnectedLayer(
+                i, w, in_q, QuantInfo(np.ones(1, np.float32), np.zeros(1, np.int64)), in_q,
+                out_q, rng.normal(0, 20, n).astype(np.float32), np.float32(2e-3),
+                (in_q.zp0 * w.astype(np.int64).sum(0)).astype(np.int32), 0, act, False, (n,)))
+            shape = (n,)
+        else:
+            layers.append(SoftmaxLayer(i, in_q, q(-128), shape))
+            out_q = layers[-1].out_q
+        in_q = out_q
+
+    for spec in (("dw", 3, 1, 6), ("conv", 3, 2, 5), ("dw", 3, 1, 5), ("dw", 3, 2, 5),
+                 ("conv", 1, 1, 8), ("dw", 3, 1, 8), ("conv", 1, 1, 12), ("conv", 1, 1, 6),
+                 ("pool",), ("reshape",), ("fc", 7), ("softmax",)):
+        add(*spec)
+    return Graph(name="conv_graph", layers=layers, input_shape=(13, 11, 1), input_q=input_q,
+                 input_dtype=np.dtype(np.int8), output_shape=shape, output_q=in_q,
+                 output_dtype=np.dtype(np.int8))
+
+
+def whole_network_checks(dev, rng) -> dict:
+    """``flatpack`` and ``colfc`` against their plain versions on the card:
+    max |kernel - plain| per kernel and the number of checks."""
+    errs = {"flatpack": [], "colfc": []}
+
+    def flat_check(g, label, batches, max_layers=None):
+        flat_fn, _, meta = build_flat_kernel(g, max_layers=max_layers, device=dev)
+        for b in batches:
+            x = torch.from_numpy(
+                rng.integers(-128, 128, (b, meta["in_lanes"]), dtype=np.int8)).to(dev)
+            errs["flatpack"].append({"case": f"{label} B{b}", "max_abs_err": max_abs_err(
+                flat_fn(x), flat_forward_reference(flat_fn.ops, x))})
+
+    def col_check(g, label, x, compute):
+        col_fn, meta = build_col_kernel(g, compute=compute, device=dev)
+        errs["colfc"].append({"case": f"{label} {meta['compute']} B{x.shape[0]}",
+                              "max_abs_err": max_abs_err(col_fn(x),
+                                                         colfc_reference(col_fn.plan, x))})
+
+    pd = parse(model_path("person_detect"))
+    for max_layers in (None, 2, 12):
+        flat_check(pd, f"person_detect[:{max_layers}]", (64, 3, 0), max_layers)
+    for name in ("speech", "sine"):
+        flat_check(parse(model_path(name)), name, (64, 3, 0))
+    cg = conv_graph(rng)
+    for max_layers in (None, 5, 9):
+        flat_check(cg, f"conv_graph[:{max_layers}]", (64, 3), max_layers)
+    sine = parse(model_path("sine"))
+    xs = torch.from_numpy(rng.integers(-128, 128, (1000, 1), dtype=np.int8)).to(dev)
+    for compute in ("i32", "f32"):
+        col_check(sine, "sine", xs, compute)
+    graphs, n_fma = edge_graphs(rng)
+    sweep = np.concatenate([np.arange(-128, 128), rng.integers(-128, 128, 768)]).astype(np.int8)
+    x = torch.from_numpy(sweep.reshape(-1, 1)).to(dev)
+    for g in graphs:
+        flat_fn, _, _ = build_flat_kernel(g, device=dev)
+        errs["flatpack"].append({"case": g.name, "max_abs_err": max_abs_err(
+            flat_fn(x), flat_forward_reference(flat_fn.ops, x))})
+        for compute in ("i32", "f32"):
+            col_check(g, g.name, x, compute)
+    return {"checks": errs, "fma_sensitive_lanes": n_fma}
 
 
 # --- timing -------------------------------------------------------------------
@@ -284,6 +493,44 @@ def time_kernels(calls) -> dict:
     return res
 
 
+def time_whole_network(dev, rng) -> dict:
+    """``flatpack`` on person_detect and speech at batch 8192 and ``colfc`` on
+    sine at batch 1,048,576, beside their plain versions and bounds."""
+    res = {}
+    for name in ("person_detect", "speech"):
+        flat_fn, _, meta = build_flat_kernel(parse(model_path(name)), device=dev)
+        x = torch.from_numpy(rng.integers(-128, 128, (8192, meta["in_lanes"]),
+                                          dtype=np.int8)).to(dev)
+        nbytes, ops = flat_bound(flat_fn.ops, 8192)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+        res[f"flatpack_{name}"] = {
+            "batch": 8192,
+            "max_abs_err": max_abs_err(flat_fn(x), flat_forward_reference(flat_fn.ops, x)),
+            "ms": time_ms(lambda: flat_fn(x), 20),
+            "plain_ms": time_ms(lambda: flat_forward_reference(flat_fn.ops, x), 3, warmup=1),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "library_ms": None}
+        del x
+        torch.cuda.empty_cache()
+    col_fn, meta = build_col_kernel(parse(model_path("sine")), device=dev)
+    b = 1 << 20
+    x = torch.from_numpy(rng.integers(-128, 128, (b, 1), dtype=np.int8)).to(dev)
+    weights = sum(int(wt.size) for wt, *_ in col_fn.plan)
+    nbytes = b * (meta["k0"] + meta["n_out"]) + weights
+    ops = 2 * b * weights
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    res["colfc_sine"] = {
+        "batch": b, "compute": meta["compute"],
+        "max_abs_err": max_abs_err(col_fn(x), colfc_reference(col_fn.plan, x)),
+        "ms": time_ms(lambda: col_fn(x), 20),
+        "plain_ms": time_ms(lambda: colfc_reference(col_fn.plan, x), 3, warmup=1),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "ops": ops, "library_ms": None}
+    return res
+
+
 # --- phases -------------------------------------------------------------------
 
 
@@ -303,7 +550,7 @@ def main() -> int:
     ptxas = {}
     for name, path in paths.items():
         with open(path + ".log") as f:
-            ptxas[name] = [ln.strip() for ln in f if "registers" in ln]
+            ptxas[name] = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": round(time.time() - t, 3), "ptxas": ptxas})
 
     # 3. kernels against their plain versions
@@ -314,87 +561,127 @@ def main() -> int:
             m.predict_inner(random_input(m, 64, rng))
     shape_errs = rec.calls
     edge = edge_cases(dev, rng)
+    whole_net = whole_network_checks(dev, rng)
     torch.cuda.synchronize()
-    errs = {k: max([c["max_abs_err"] for c in shape_errs[k] + edge[k]]) for k in shape_errs}
+    checks = {k: shape_errs[k] + edge[k] for k in shape_errs}
+    checks.update(whole_net["checks"])
+    errs = {k: max(c["max_abs_err"] for c in v) for k, v in checks.items()}
     emit({"phase": "kernels_vs_plain", "tolerance": "bit-equal (max_abs_err 0)",
-          "max_abs_err": errs,
-          "checks": {k: len(shape_errs[k]) + len(edge[k]) for k in errs},
-          "model_shapes": {k: len(shape_errs[k]) for k in errs}})
+          "max_abs_err": errs, "checks": {k: len(v) for k, v in checks.items()},
+          "model_shapes": {k: len(shape_errs[k]) for k in shape_errs},
+          "whole_network_cases": {k: [c["case"] for c in v]
+                                  for k, v in whole_net["checks"].items()},
+          "fma_sensitive_lanes": whole_net["fma_sensitive_lanes"]})
     if any(errs.values()):
         raise AssertionError(f"kernel differs from its plain version: {errs}")
 
-    pd = compile_tflite(model_path("person_detect"), name="person_detect")
+    pd = compile_tflite(model_path("person_detect"), name="person_detect", backend="pallas")
     with Recorder("capture") as rec:
         pd.predict_inner(random_input(pd, 8192, rng))
     timing = time_kernels(rec.calls)
     del rec
     torch.cuda.empty_cache()
-    if any(timing[k]["max_abs_err"] for k in timing):
-        raise AssertionError("kernel differs from its plain version at batch 8192")
-    emit({"phase": "kernel_times", "batch": 8192, "device": smi, **timing})
+    timing_whole = time_whole_network(dev, rng)
+    torch.cuda.empty_cache()
+    if any(v["max_abs_err"] for v in list(timing.values()) + list(timing_whole.values())):
+        raise AssertionError("kernel differs from its plain version at the timed batch")
+    emit({"phase": "kernel_times", "batch": 8192, "device": smi, **timing, **timing_whole})
 
-    # 4. main path: goldens through the default backend; launch counts of
-    # the person_detect requests
-    goldens = {}
-    for name in MODELS:
-        x, want = GOLDENS[name]
-        m = compile_tflite(model_path(name), name=name)
-        if m.backend != "pallas":
-            raise AssertionError(f"default backend on CUDA is {m.backend!r}, not the kernels")
-        if name == "person_detect":
-            LAUNCHES.clear()
-            got = m.predict(x).cpu().numpy()
-            reqs = [m.predict(rng.uniform(0, 1, (b, 96, 96, 1)).astype(np.float32))
-                    for b in (1, 3, 16)]
-            torch.cuda.synchronize()
-            launches = dict(LAUNCHES)
-            if not all(np.isfinite(r.cpu().numpy()).all() for r in reqs):
-                raise AssertionError("person_detect: non-finite output")
-        else:
-            got = m.predict(x).cpu().numpy()
+    # 4. main paths, each with the launch counts set to 0 just before it
+    def drive(model, requests):
+        LAUNCHES.clear()
+        outs = [model.predict(r) for r in requests]
+        torch.cuda.synchronize()
+        if not all(np.isfinite(o.cpu().numpy()).all() for o in outs):
+            raise AssertionError(f"{model.graph.name}: non-finite output")
+        return outs, dict(LAUNCHES)
+
+    def golden(name, got):
+        want = GOLDENS[name][1]
+        got = got.cpu().numpy()
         if got.shape != want.shape or not np.array_equal(got, want):
             raise AssertionError(f"{name} golden mismatch: {got} != {want}")
-        goldens[name] = got.ravel().tolist()
-    per_forward = {"qgemm": 14, "qdwconv": 14}
-    for k, n in per_forward.items():
-        if launches.get(k, 0) != 4 * n:
-            raise AssertionError(f"main path launched {k} {launches.get(k, 0)} times, "
-                                 f"expected {4 * n} (4 requests)")
-    emit({"phase": "main_path", "goldens_bit_exact": goldens, "launches": launches,
+        return got.ravel().tolist()
+
+    pd_reqs = [GOLDENS["person_detect"][0]] + [
+        rng.uniform(0, 1, (b, 96, 96, 1)).astype(np.float32) for b in (1, 3, 16)]
+    goldens, paths = {}, {}
+    for name in MODELS:
+        m = compile_tflite(model_path(name), name=name)
+        expect = "pallas" if name == "sine" else "flat"
+        if m.backend != expect:
+            raise AssertionError(f"default backend on CUDA for {name} is {m.backend!r}, "
+                                 f"not {expect!r}")
+        if name == "person_detect":
+            outs, paths["flat"] = drive(m, pd_reqs)
+            goldens[name] = golden(name, outs[0])
+        else:
+            goldens[name] = golden(name, m.predict(GOLDENS[name][0]))
+    if paths["flat"] != {"flatpack": 4}:
+        raise AssertionError(f"default person_detect path launched {paths['flat']}, "
+                             "expected 4 flatpack launches and no per-op kernel (4 requests)")
+    m = compile_tflite(model_path("person_detect"), name="person_detect", backend="pallas")
+    outs, paths["pallas"] = drive(m, pd_reqs)
+    golden("person_detect", outs[0])
+    if paths["pallas"] != {k: 4 * n for k, n in PD_FORWARD.items()}:
+        raise AssertionError(f"pallas path launched {paths['pallas']}, expected "
+                             f"{PD_FORWARD} per forward (4 requests)")
+    m = compile_tflite(model_path("sine"), name="sine", backend="colfc")
+    sine_reqs = [GOLDENS["sine"][0]] + [
+        rng.uniform(0, 2 * np.pi, (b, 1)).astype(np.float32) for b in (1, 3, 1000)]
+    outs, paths["colfc"] = drive(m, sine_reqs)
+    golden("sine", outs[0])
+    if paths["colfc"] != {"colfc": 4}:
+        raise AssertionError(f"colfc path launched {paths['colfc']}, expected 4 (4 requests)")
+    launches = {"qgemm": paths["pallas"]["qgemm"], "qdwconv": paths["pallas"]["qdwconv"],
+                "flatpack": paths["flat"]["flatpack"], "colfc": paths["colfc"]["colfc"]}
+    emit({"phase": "main_path", "goldens_bit_exact": goldens, "launches_by_path": paths,
           "requests": 4})
 
-    # 5. whole model: kernels vs plain torch ops on the card
+    # 5. whole model: the kernel backends vs the plain torch ops on the card
     whole = {}
     for name in MODELS:
-        mk = compile_tflite(model_path(name), name=name, backend="pallas")
         mx = compile_tflite(model_path(name), name=name, backend="xla")
-        xq = random_input(mk, 1024, rng)
-        yk, yx = mk.predict_inner(xq), mx.predict_inner(xq)
-        whole[name] = {"shape": list(yk.shape), "max_abs_err": max_abs_err(yk, yx)}
+        xq = random_input(mx, 1024, rng)
+        yx = mx.predict_inner(xq)
+        for backend in ("flat", "pallas") + (("colfc",) if name == "sine" else ()):
+            yk = compile_tflite(model_path(name), name=name, backend=backend).predict_inner(xq)
+            whole[f"{name}/{backend}"] = {"shape": list(yk.shape),
+                                          "max_abs_err": max_abs_err(yk, yx)}
         del mx
     torch.cuda.empty_cache()
     emit({"phase": "whole_model_vs_plain", "batch": 1024, **whole})
     if any(v["max_abs_err"] for v in whole.values()):
-        raise AssertionError(f"kernel backend differs from the plain backend: {whole}")
+        raise AssertionError(f"a kernel backend differs from the plain backend: {whole}")
 
-    # 6. throughput
+    # 6. throughput, flat and pallas in turns on one card
     thr = {}
-    for batch in (8192, 32768):
-        xq = random_input(pd, batch, rng)
-        ms = time_ms(lambda: pd.predict_inner(xq), 10 if batch == 8192 else 5, warmup=2)
-        thr[str(batch)] = {"ms_per_batch": ms, "inferences_per_s": batch / ms * 1e3}
-        del xq
-        torch.cuda.empty_cache()
-    emit({"phase": "throughput", "model": "person_detect", "backend": pd.backend,
-          "device": smi, "clocks_power": nvidia_smi("clocks.sm,power.draw,power.limit"), **thr})
+    for name, batches in (("person_detect", (8192, 32768)), ("speech", (8192,))):
+        models = {b: compile_tflite(model_path(name), name=name, backend=b)
+                  for b in ("flat", "pallas")}
+        for batch in batches:
+            xq = random_input(models["flat"], batch, rng)
+            runs = {"flat": [], "pallas": []}
+            for backend in ("flat", "pallas", "pallas", "flat"):
+                mb = models[backend]
+                runs[backend].append(time_ms(lambda: mb.predict_inner(xq),
+                                             10 if batch == 8192 else 5, warmup=2))
+            thr[f"{name}/{batch}"] = {b: {"ms_per_batch": v, "inferences_per_s": [
+                batch / ms * 1e3 for ms in v]} for b, v in runs.items()}
+            del xq
+            torch.cuda.empty_cache()
+    emit({"phase": "throughput", "order": "flat, pallas, pallas, flat", "device": smi,
+          "clocks_power": nvidia_smi("clocks.sm,power.draw,power.limit"), **thr})
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
 
+    per_kernel = {**timing, "flatpack": timing_whole["flatpack_person_detect"],
+                  "colfc": timing_whole["colfc_sine"]}
     emit({"kernels": [
         {"name": k, "route": "cuda", **KERNEL_INFO[k], "launches": launches[k],
-         "max_abs_err": max(errs[k], timing[k]["max_abs_err"]), "ms": timing[k]["ms"],
-         "plain_ms": timing[k]["plain_ms"], "bound_ms": timing[k]["bound_ms"],
-         "bound_by": timing[k]["bound_by"], "library_ms": timing[k]["library_ms"]}
-        for k in ("qgemm", "qdwconv")]})
+         "max_abs_err": max(errs[k], per_kernel[k]["max_abs_err"]), "ms": per_kernel[k]["ms"],
+         "plain_ms": per_kernel[k]["plain_ms"], "bound_ms": per_kernel[k]["bound_ms"],
+         "bound_by": per_kernel[k]["bound_by"], "library_ms": per_kernel[k]["library_ms"]}
+        for k in KERNEL_INFO]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

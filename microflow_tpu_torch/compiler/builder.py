@@ -5,7 +5,10 @@ package closes a jitted function over the layer IR, the port runs the
 layers eagerly: static attributes (shapes, strides, folded scalars,
 quantization parameters) are host values, and the trainable arrays
 (weights, C0 bias constants, FC's derived C2) are torch tensors on the
-model's device in ``CompiledModel.params``, which may be swapped.
+model's device in ``CompiledModel.params``.  The per-op backends
+(``"xla"``, ``"pallas"``) compute from ``params``, which may be swapped; the
+whole-network backends (``"flat"``, ``"colfc"``) bake the weights into
+their kernel's plan at build and refuse a swap.
 
 The API mirrors the reference model struct:
 
@@ -17,15 +20,28 @@ Backends (the JAX package's names, so callers pass the same strings):
 
 * ``"xla"`` -- the plain torch ops of ``ops/``: exact integer contractions
   in float64 or int32 and the reference's f32 epilogues.  The oracle.
+* ``"flat"`` -- the whole flat-packable prefix of the graph in one
+  hand-written CUDA kernel (``kernels/flatpack.py``), the JAX package's
+  production path; the layers after the prefix (none for the bundled
+  models) run as ``"pallas"`` on CUDA and as the plain ops on the CPU.
+  Like the JAX package's, the kernel reads weights baked into its plan at
+  build.  int8 graphs only.
 * ``"pallas"`` -- FullyConnected and Conv2D through the ``qgemm`` kernel,
   DepthwiseConv2D through ``qdwconv`` (hand-written CUDA for Hopper); pool,
   reshape, softmax and quantize stay plain torch, as they are plain array
   ops in the JAX package's per-op backend.  int8 graphs only.  On the CPU
   the kernels' plain versions run instead, which keeps the host-side prep
   (im2col, folded ``d``, centred weights, padding, channel gather) tested.
-* ``"auto"`` -- ``"pallas"`` on CUDA, ``"xla"`` on the CPU.
-* ``"flat"`` and the experimental ``"fused"``, ``"hybrid"``, ``"packed"``,
-  ``"colfc"`` -- not ported yet (ROADMAP.md, queue B); they raise.
+* ``"colfc"`` -- the JAX package's experimental column-FC kernel for tiny
+  FullyConnected chains (``kernels/colfc.py``), weights baked at build.
+  int8 graphs only.
+* ``"auto"`` -- ``resolve_backend``: on CUDA, ``"flat"`` for a graph with a
+  Conv2D/DepthwiseConv2D layer that flat-packs (as the JAX package picks
+  on its accelerator), else ``"pallas"``; ``"xla"`` on the CPU.  A
+  non-int8 graph on CUDA raises: it runs only where the caller asks for
+  ``"xla"``.
+* ``"fused"``, ``"hybrid"``, ``"packed"`` -- not ported yet
+  (ROADMAP.md, queue B); they raise.
 """
 
 from __future__ import annotations
@@ -33,7 +49,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.numerics import const_f32, f32, torch_dtype
+from ..core.numerics import broadcast_per_channel, const_f32, f32, torch_dtype
 from ..core.quantize import dequantize, quantize
 from ..core.tensor import pad_nhwc, reshape_2d
 from ..ops import (
@@ -57,14 +73,9 @@ from .ir import (
     SoftmaxLayer,
 )
 
-BACKENDS = frozenset({"auto", "xla", "pallas"})
+BACKENDS = frozenset({"auto", "xla", "pallas", "flat", "colfc"})
 # The JAX package's other backends, still to port (ROADMAP.md queue B).
-UNPORTED_BACKENDS = frozenset({"flat", "fused", "hybrid", "packed", "colfc"})
-
-
-def _broadcast_per_channel(values: np.ndarray, n: int, dtype) -> np.ndarray:
-    """Reference ``.get(i).unwrap_or(arr[0])`` as a static broadcast."""
-    return np.array([values[i] if i < len(values) else values[0] for i in range(n)], dtype)
+UNPORTED_BACKENDS = frozenset({"fused", "hybrid", "packed"})
 
 
 def resolve_device(device=None) -> torch.device:
@@ -124,8 +135,8 @@ def layer_constants(layer, device) -> dict:
         n = layer.weights.shape[2]
     else:
         return {}
-    return {"wzp": _i32(_broadcast_per_channel(layer.w_q.zero_point, n, np.int32), device),
-            "c1": const_f32(_broadcast_per_channel(layer.c1, n, np.float32), device)}
+    return {"wzp": _i32(broadcast_per_channel(layer.w_q.zero_point, n, np.int32), device),
+            "c1": const_f32(broadcast_per_channel(layer.c1, n, np.float32), device)}
 
 
 def _bias0(layer, p: dict) -> torch.Tensor:
@@ -226,8 +237,8 @@ def apply_layer(layer, params: dict, x: torch.Tensor, backend: str = "xla",
         if kernels:
             return _conv_kernel(layer, p, x, consts)
         num_f = layer.filters.shape[0]
-        w_zp = _broadcast_per_channel(layer.w_q.zero_point, num_f, np.int32)
-        c1 = _broadcast_per_channel(layer.c1, num_f, np.float32)
+        w_zp = broadcast_per_channel(layer.w_q.zero_point, num_f, np.int32)
+        c1 = broadcast_per_channel(layer.c1, num_f, np.float32)
         return conv_2d(
             x,
             p["weights"],
@@ -245,8 +256,8 @@ def apply_layer(layer, params: dict, x: torch.Tensor, backend: str = "xla",
         if kernels:
             return _dw_kernel(layer, p, x, consts)
         ch = layer.weights.shape[2]
-        w_zp = _broadcast_per_channel(layer.w_q.zero_point, ch, np.int32)
-        c1 = _broadcast_per_channel(layer.c1, ch, np.float32)
+        w_zp = broadcast_per_channel(layer.w_q.zero_point, ch, np.int32)
+        c1 = broadcast_per_channel(layer.c1, ch, np.float32)
         return depthwise_conv_2d(
             x,
             p["weights"],
@@ -292,9 +303,8 @@ def apply_layer(layer, params: dict, x: torch.Tensor, backend: str = "xla",
     raise TypeError(f"unknown layer {type(layer)}")
 
 
-def _check_int8(graph: Graph) -> None:
-    """The kernels take int8 only: refuse any other activation or weight
-    type on the kernel backend."""
+def _non_int8(graph: Graph) -> list[str]:
+    """The tensor types of ``graph`` other than int8, sorted."""
     dtypes = {np.dtype(graph.input_dtype)}
     for layer in graph.layers:
         for arr in (getattr(layer, "weights", None), getattr(layer, "filters", None)):
@@ -302,11 +312,53 @@ def _check_int8(graph: Graph) -> None:
                 dtypes.add(arr.dtype)
         if isinstance(layer, QuantizeLayer):
             dtypes.add(np.dtype(layer.out_dtype))
-    bad = sorted(str(d) for d in dtypes if d != np.int8)
+    return sorted(str(d) for d in dtypes if d != np.int8)
+
+
+def _check_int8(graph: Graph, backend: str) -> None:
+    """The kernels take int8 only: refuse any other activation or weight
+    type on a kernel backend."""
+    bad = _non_int8(graph)
     if bad:
         raise ValueError(
-            f"backend 'pallas' runs int8 graphs only; {graph.name!r} has {bad} "
+            f"backend {backend!r} runs int8 graphs only; {graph.name!r} has {bad} "
             "tensors (use backend='xla')")
+
+
+def select_backend(graph: Graph, backend: str, device_type: str):
+    """The backend a model of ``graph`` runs on a device of type
+    ``device_type`` (``"cuda"`` or ``"cpu"``) when ``backend`` is asked
+    for, and the flat plan when that is ``"flat"``: ``(backend, plan)``.
+    Raises for a backend that is unknown or not ported, or that cannot run
+    the graph.  Host work only."""
+    if backend in UNPORTED_BACKENDS:
+        raise NotImplementedError(
+            f"backend {backend!r} is not ported to torch yet; see ROADMAP.md "
+            f"(queue B). Ported: {sorted(BACKENDS)}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; choose one of {sorted(BACKENDS)}")
+    from ..kernels.flatpack import plan_flat
+
+    plan = None
+    if backend == "auto":
+        if device_type != "cuda":
+            return "xla", None
+        if any(isinstance(layer, (Conv2DLayer, DepthwiseConv2DLayer)) for layer in graph.layers):
+            plan = plan_flat(graph)
+        backend = "pallas" if plan is None else "flat"
+    elif backend == "flat":
+        plan = plan_flat(graph)
+        if plan is None:
+            raise ValueError("graph is not flat-packable; use backend='xla'")
+    if backend != "xla":
+        _check_int8(graph, backend)
+    return backend, plan
+
+
+def resolve_backend(graph: Graph, device_type: str) -> str:
+    """What ``backend="auto"`` means for ``graph`` on a device of type
+    ``device_type``; raises where it cannot run the graph."""
+    return select_backend(graph, "auto", device_type)[0]
 
 
 class CompiledModel:
@@ -316,25 +368,61 @@ class CompiledModel:
     def __init__(self, graph: Graph, backend: str = "auto", device=None):
         self.graph = graph
         self.device = resolve_device(device)
-        if backend in UNPORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported to torch yet; see ROADMAP.md "
-                "(queue B). Ported: 'xla', 'pallas', 'auto'")
-        if backend not in BACKENDS:
-            raise ValueError(f"unknown backend {backend!r}; choose one of {sorted(BACKENDS)}")
-        if backend == "auto":
-            backend = "pallas" if self.device.type == "cuda" else "xla"
-        if backend == "pallas":
-            _check_int8(graph)
-        self.backend = backend
+        self.backend, plan = select_backend(graph, backend, self.device.type)
+        self._flat = self._colfc = None
         self.params = init_params(graph, self.device)
-        self._consts = ({layer.index: layer_constants(layer, self.device)
-                         for layer in graph.layers} if backend == "pallas" else {})
+        per_op_layers = graph.layers if self.backend == "pallas" else []
+        if self.backend == "flat":
+            from ..kernels.flatpack import kernel_from_plan
+
+            self._flat = kernel_from_plan(plan, device=self.device)
+            per_op_layers = graph.layers[self._flat[1]:]
+        elif self.backend == "colfc":
+            from ..kernels.colfc import build_col_kernel
+
+            self._colfc = build_col_kernel(graph, device=self.device)
+            if self._colfc is None:
+                raise ValueError(
+                    "graph is not a colfc-packable tiny-FC chain; use backend='xla'")
+        # the flat prefix's tail runs the per-op kernels on CUDA and the
+        # plain ops on the CPU
+        self._tail_backend = "pallas" if self.device.type == "cuda" else "xla"
+        self._consts = {layer.index: layer_constants(layer, self.device)
+                        for layer in per_op_layers}
+
+    @property
+    def params(self) -> dict:
+        return self._params
+
+    @params.setter
+    def params(self, params: dict) -> None:
+        if self._flat is not None or self._colfc is not None:
+            raise ValueError(
+                f"backend {self.backend!r} bakes the weights into its kernel's plan at "
+                "build; swap params on backend 'xla' or 'pallas', or build from a graph "
+                "that holds the new weights")
+        self._params = params
 
     def _forward(self, xq: torch.Tensor) -> torch.Tensor:
+        if self._flat is not None:
+            return self._flat_forward(xq)
+        if self._colfc is not None:
+            col_fn, meta = self._colfc
+            y = col_fn(xq.reshape(xq.shape[0], meta["k0"]))
+            return y.reshape(xq.shape[0], *self.graph.output_shape)
         for layer in self.graph.layers:
             xq = apply_layer(layer, self.params, xq, self.backend, self._consts.get(layer.index))
         return xq
+
+    def _flat_forward(self, xq: torch.Tensor) -> torch.Tensor:
+        """The flat kernel on the prefix, then the tail layers."""
+        flat_fn, n_layers, meta = self._flat
+        b = xq.shape[0]
+        x = flat_fn(xq.reshape(b, meta["in_lanes"])).reshape(b, *meta["out_shape"])
+        for layer in self.graph.layers[n_layers:]:
+            x = apply_layer(layer, self.params, x, self._tail_backend,
+                            self._consts.get(layer.index))
+        return x
 
     def _input(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device).to(dtype)

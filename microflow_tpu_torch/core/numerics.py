@@ -77,3 +77,36 @@ def const_f32(value, device) -> torch.Tensor:
     if torch.is_tensor(value):
         return value.to(device=device, dtype=torch.float32)
     return torch.as_tensor(np.asarray(value, np.float32), device=device)
+
+
+def broadcast_per_channel(values, n: int, dtype) -> np.ndarray:
+    """Reference ``.get(i).unwrap_or(arr[0])`` as a static broadcast of a
+    scalar or per-channel host value to ``n`` channels."""
+    values = np.atleast_1d(np.asarray(values))
+    return np.array([values[i] if i < len(values) else values[0] for i in range(n)], dtype)
+
+
+# --- host-side (numpy) epilogue, to hold the kernels to their rounding -------
+
+
+def np_round_away(y: np.ndarray) -> np.ndarray:
+    """``round_away`` in numpy."""
+    t = np.trunc(y)
+    return t + np.sign(y) * (np.abs(y - t) >= 0.5)
+
+
+def np_exact2(y: np.ndarray) -> np.ndarray:
+    """The whole-network kernels' round, ``trunc(y + (y >= 0 ? 0.5 : -0.5))``
+    in f32; not round-half-away at ``y = +-(0.5 - 2**-25)``."""
+    y = np.asarray(y, np.float32)
+    return np.trunc((y + np.where(y >= 0, np.float32(0.5), np.float32(-0.5))).astype(np.float32))
+
+
+def np_epilogue(a, b, add) -> tuple[np.ndarray, np.ndarray]:
+    """f32 ``add + a*b`` as a multiply then an add (the kernels' order) and
+    as one fused multiply-add (emulated in float64, where the product of
+    two f32 values is exact)."""
+    a, b, add = (np.asarray(v, np.float32) for v in (a, b, add))
+    sep = (add + (a * b).astype(np.float32)).astype(np.float32)
+    fma = (add.astype(np.float64) + a.astype(np.float64) * b.astype(np.float64)).astype(np.float32)
+    return sep, fma

@@ -1,0 +1,32 @@
+// Requantization epilogues shared by the whole-network kernels
+// (flatpack.cu, colfc.cu).  Built with -fmad=false; the multiply and the add
+// are also spelled __fmul_rn/__fadd_rn, so y = bias0 + c1*f32(acc) rounds
+// twice, as in the reference, never as one fused multiply-add.
+//
+// lo and hi are the activation's clip bounds already intersected with the
+// int8 range.  A float->int8 conversion out of range is undefined in C++,
+// so every path clamps in f32 first; the clamped value is integral and the
+// truncating conversion is then exact.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__device__ __forceinline__ float mf_affine(float bias0, float c1, int acc) {
+  return __fadd_rn(bias0, __fmul_rn(c1, __int2float_rn(acc)));
+}
+
+// The TPU kernels' "exact2": round half away from zero folded into a
+// truncation, trunc(y + (y >= 0 ? 0.5 : -0.5)).  It differs from roundf at
+// y = +-(0.5 - 2^-25), where the add rounds up to +-1.
+__device__ __forceinline__ int8_t mf_exact2(float y, float lo, float hi) {
+  const float t = __fadd_rn(y, y >= 0.0f ? 0.5f : -0.5f);
+  return (int8_t)__float2int_rz(fminf(fmaxf(t, lo), hi));
+}
+
+// roundf (half away from zero), then the clamp: the reference's own rule
+// ("exact", pool, softmax).
+__device__ __forceinline__ int8_t mf_round_away(float y, float lo, float hi) {
+  return (int8_t)__float2int_rz(fminf(fmaxf(roundf(y), lo), hi));
+}

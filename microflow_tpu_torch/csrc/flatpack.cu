@@ -1,0 +1,389 @@
+// Whole-network flat kernel for Hopper (sm_90a).
+//
+// Replaces the Pallas kernel microflow_tpu/kernels/flatpack.py::build_flat_kernel
+// (body `kernel`, launcher `flat_fn`): the whole flat-packable prefix of a
+// graph -- depthwise and pointwise convs, any Conv2D, FullyConnected,
+// AveragePool, Softmax -- in one launch, int8 [B, in_elems] -> int8
+// [B, out_elems].  The plan (op descriptors, then each op's constants) is one
+// device buffer made once per model by kernels/flatpack.py::pack_plan.
+//
+// What bounds it on an H100: operations.  person_detect does 7.16M
+// multiply-adds per sample on 9,216 input bytes and 2 output bytes, so at
+// batch 8192 the int8 tensor-core peak allows 0.059 ms and HBM 0.023 ms.
+// The design keeps every intermediate tensor on chip: a persistent block
+// takes one sample at a time (b = blockIdx.x; b < B; b += gridDim.x), stages
+// its input row in shared memory, and runs op after op between two
+// ping-pong shared-memory buffers (each sized to the largest tensor of its
+// parity; 18,432 + 36,864 bytes for person_detect, so four blocks an SM),
+// with __syncthreads() between ops.  The only device-memory traffic is the
+// input row, the output row, and the plan (240 KB for person_detect),
+// which stays in L2.
+// Threads stride over output elements with the channel fastest, so
+// neighbouring threads read neighbouring bytes.  Depthwise convs and 1x1
+// convs over a multiple of 4 channels use __dp4a, four output channels a
+// thread; the rest is scalar integer work on the CUDA cores.  No tensor
+// cores yet: the 1x1 convs do 86% of the multiply-adds, likely waiting on
+// their weight loads from L2, and an mma.sync path for them is later work.
+//
+// Every read stays in bounds: a tap outside the input is skipped, or reads
+// in_zp in place of the input (either way it adds (in_zp - in_zp) * w = 0,
+// as in the reference), where the TPU kernel read past the row into its
+// tile padding.  Epilogues: csrc/epilogue.cuh.
+
+#include "epilogue.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int NF = 32;  // int32 fields per op descriptor (kernels/flatpack.py)
+enum {
+  F_KIND, F_IH, F_IW, F_IC, F_OH, F_OW, F_OC, F_KH, F_KW, F_SR, F_SC, F_PT, F_PL, F_ZP, F_LO,
+  F_HI, F_W, F_D, F_BIAS, F_C1, F_RECIP, F_S0, F_S1, F_OUTZP, F_EXACT, F_IN, F_OUT, F_VEC
+};
+enum { K_DW, K_CONV, K_PW, K_FC, K_POOL, K_SOFTMAX };
+
+struct Op {
+  const int* f;
+  const unsigned char* plan;
+  __device__ int operator[](int i) const { return __ldg(f + i); }
+  template <typename T>
+  __device__ const T* at(int field) const {
+    return reinterpret_cast<const T*>(plan + __ldg(f + field));
+  }
+};
+
+__device__ __forceinline__ int8_t requant(int acc, float b0, float c1, float lo, float hi,
+                                          int exact) {
+  const float y = mf_affine(b0, c1, acc);
+  return exact ? mf_round_away(y, lo, hi) : mf_exact2(y, lo, hi);
+}
+
+// Depthwise conv, one output a thread (the general case); output channel c
+// reads input channel c, or channel 0 when the input has fewer channels
+// (the depth-multiplier fallback).
+__device__ void op_dw(const Op& op, const int8_t* src, int8_t* dst) {
+  const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
+  const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
+  const int kh = op[F_KH], kw = op[F_KW], sr = op[F_SR], sc = op[F_SC];
+  const int pt = op[F_PT], pl = op[F_PL], zp = op[F_ZP], exact = op[F_EXACT];
+  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
+  const int8_t* w = op.at<int8_t>(F_W);  // [KH][KW][OC]
+  const float* b0 = op.at<float>(F_BIAS);
+  const float* c1 = op.at<float>(F_C1);
+  const int total = oh * ow * oc;
+  for (int e = threadIdx.x; e < total; e += kThreads) {
+    const int c = e % oc, p = e / oc;
+    const int r0 = (p / ow) * sr - pt, q0 = (p % ow) * sc - pl;
+    const int ci = c < ic ? c : 0;
+    int acc = 0;
+    for (int dh = 0; dh < kh; ++dh) {
+      const int r = r0 + dh;
+      if (r < 0 || r >= ih) continue;
+      for (int dw = 0; dw < kw; ++dw) {
+        const int q = q0 + dw;
+        if (q < 0 || q >= iw) continue;
+        acc += ((int)src[(r * iw + q) * ic + ci] - zp) * (int)__ldg(w + (dh * kw + dw) * oc + c);
+      }
+    }
+    dst[e] = requant(acc, __ldg(b0 + c), __ldg(c1 + c), lo, hi, exact);
+  }
+}
+
+// Transpose a 4x4 block of bytes: word j of t holds tap j's four channels;
+// word c of w gets channel c's four taps, ready for __dp4a.
+__device__ __forceinline__ void transpose4(const uint32_t (&t)[4], uint32_t (&w)[4]) {
+  const uint32_t ab_lo = __byte_perm(t[0], t[1], 0x5140), ab_hi = __byte_perm(t[0], t[1], 0x7362);
+  const uint32_t cd_lo = __byte_perm(t[2], t[3], 0x5140), cd_hi = __byte_perm(t[2], t[3], 0x7362);
+  w[0] = __byte_perm(ab_lo, cd_lo, 0x5410);
+  w[1] = __byte_perm(ab_lo, cd_lo, 0x7632);
+  w[2] = __byte_perm(ab_hi, cd_hi, 0x5410);
+  w[3] = __byte_perm(ab_hi, cd_hi, 0x7632);
+}
+
+// Depthwise conv, four channels a thread (OC % 4 == 0, IC == OC or IC == 1,
+// OC/4 dividing the block): each thread keeps one group of four channels,
+// so its epilogue constants stay in registers.  Taps go four at a time: the
+// four taps' channel words are transposed into one word per channel and
+// multiplied by __dp4a against the plan's [ceil(KH*KW/4)][OC] words of
+// four taps each.  A tap outside the input reads in_zp, and d[c] =
+// -in_zp * sum of all taps' w removes it again: the sum is then
+// sum over in-bounds taps (x - in_zp) * w, exactly.
+__device__ void op_dw_vec(const Op& op, const int8_t* src, int8_t* dst) {
+  const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
+  const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
+  const int kh = op[F_KH], kw = op[F_KW], sr = op[F_SR], sc = op[F_SC];
+  const int pt = op[F_PT], pl = op[F_PL], exact = op[F_EXACT];
+  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
+  const uint32_t zpw = __byte_perm((uint32_t)op[F_ZP], 0, 0x0000);
+  const int groups = oc >> 2, g = threadIdx.x % groups, c0 = 4 * g;
+  const int taps = kh * kw, n4 = (taps + 3) >> 2;
+  const int4* w4 = op.at<int4>(F_W) + g;
+  int d[4];
+  float b0[4], c1[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    d[j] = __ldg(op.at<int>(F_D) + c0 + j);
+    b0[j] = __ldg(op.at<float>(F_BIAS) + c0 + j);
+    c1[j] = __ldg(op.at<float>(F_C1) + c0 + j);
+  }
+  const int total = oh * ow;
+  for (int p = threadIdx.x / groups; p < total; p += kThreads / groups) {
+    const int r0 = (p / ow) * sr - pt, q0 = (p % ow) * sc - pl;
+    int acc[4] = {0, 0, 0, 0};
+    int dh = 0, dw = 0;
+    for (int i = 0; i < n4; ++i) {
+      uint32_t t[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        t[j] = 0;  // a padding tap: its weight is 0
+        if (4 * i + j < taps) {
+          const int r = r0 + dh, q = q0 + dw;
+          t[j] = zpw;
+          if ((unsigned)r < (unsigned)ih && (unsigned)q < (unsigned)iw) {
+            const int pix = r * iw + q;
+            t[j] = ic == 1 ? __byte_perm((uint32_t)(uint8_t)src[pix], 0, 0x0000)
+                           : *reinterpret_cast<const uint32_t*>(src + pix * ic + c0);
+          }
+          if (++dw == kw) {
+            dw = 0;
+            ++dh;
+          }
+        }
+      }
+      uint32_t xw[4];
+      transpose4(t, xw);
+      const int4 wv = __ldg(w4 + i * groups);
+      acc[0] = __dp4a((int)xw[0], wv.x, acc[0]);
+      acc[1] = __dp4a((int)xw[1], wv.y, acc[1]);
+      acc[2] = __dp4a((int)xw[2], wv.z, acc[2]);
+      acc[3] = __dp4a((int)xw[3], wv.w, acc[3]);
+    }
+    uint32_t packed = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      packed |= (uint32_t)(uint8_t)requant(acc[j] + d[j], b0[j], c1[j], lo, hi, exact) << (8 * j);
+    *reinterpret_cast<uint32_t*>(dst + p * oc + c0) = packed;
+  }
+}
+
+// Any Conv2D: filters [OC][KH][KW][IC].
+__device__ void op_conv(const Op& op, const int8_t* src, int8_t* dst) {
+  const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
+  const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
+  const int kh = op[F_KH], kw = op[F_KW], sr = op[F_SR], sc = op[F_SC];
+  const int pt = op[F_PT], pl = op[F_PL], zp = op[F_ZP], exact = op[F_EXACT];
+  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
+  const int8_t* w = op.at<int8_t>(F_W);
+  const float* b0 = op.at<float>(F_BIAS);
+  const float* c1 = op.at<float>(F_C1);
+  const int total = oh * ow * oc;
+  for (int e = threadIdx.x; e < total; e += kThreads) {
+    const int f = e % oc, p = e / oc;
+    const int r0 = (p / ow) * sr - pt, q0 = (p % ow) * sc - pl;
+    int acc = 0;
+    for (int dh = 0; dh < kh; ++dh) {
+      const int r = r0 + dh;
+      if (r < 0 || r >= ih) continue;
+      for (int dw = 0; dw < kw; ++dw) {
+        const int q = q0 + dw;
+        if (q < 0 || q >= iw) continue;
+        const int8_t* xs = src + (r * iw + q) * ic;
+        const int8_t* ws = w + ((f * kh + dh) * kw + dw) * ic;
+        for (int ci = 0; ci < ic; ++ci) acc += ((int)xs[ci] - zp) * (int)__ldg(ws + ci);
+      }
+    }
+    dst[e] = requant(acc, __ldg(b0 + f), __ldg(c1 + f), lo, hi, exact);
+  }
+}
+
+// 1x1 conv (any stride) over IC % 4 == 0 channels: raw int8 dot by __dp4a
+// plus d[f] = -in_zp * colsum.  Weights are [IC/4][OC] words.
+__device__ void op_pw(const Op& op, const int8_t* src, int8_t* dst) {
+  const int iw = op[F_IW], ic = op[F_IC];
+  const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
+  const int sr = op[F_SR], sc = op[F_SC], exact = op[F_EXACT];
+  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
+  const int* w4 = op.at<int>(F_W);
+  const int* d = op.at<int>(F_D);
+  const float* b0 = op.at<float>(F_BIAS);
+  const float* c1 = op.at<float>(F_C1);
+  const int k4 = ic >> 2;
+  if ((oc & 3) == 0) {
+    // four output channels a thread: one x word feeds four __dp4a, and the
+    // four weight words arrive in one 16-byte load
+    const int groups = oc >> 2;
+    const int total = oh * ow * groups;
+    const int4* wv4 = reinterpret_cast<const int4*>(w4);
+    for (int e = threadIdx.x; e < total; e += kThreads) {
+      const int g = e % groups, p = e / groups;
+      const int ip = (p / ow) * sr * iw + (p % ow) * sc;
+      const int* xw = reinterpret_cast<const int*>(src + ip * ic);
+      int acc[4] = {0, 0, 0, 0};
+      for (int k = 0; k < k4; ++k) {
+        const int xv = xw[k];
+        const int4 wv = __ldg(wv4 + k * groups + g);
+        acc[0] = __dp4a(xv, wv.x, acc[0]);
+        acc[1] = __dp4a(xv, wv.y, acc[1]);
+        acc[2] = __dp4a(xv, wv.z, acc[2]);
+        acc[3] = __dp4a(xv, wv.w, acc[3]);
+      }
+      const int c = 4 * g;
+      uint32_t packed = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        packed |= (uint32_t)(uint8_t)requant(acc[j] + __ldg(d + c + j), __ldg(b0 + c + j),
+                                             __ldg(c1 + c + j), lo, hi, exact)
+                  << (8 * j);
+      *reinterpret_cast<uint32_t*>(dst + p * oc + c) = packed;
+    }
+  } else {
+    const int total = oh * ow * oc;
+    for (int e = threadIdx.x; e < total; e += kThreads) {
+      const int c = e % oc, p = e / oc;
+      const int ip = (p / ow) * sr * iw + (p % ow) * sc;
+      const int* xw = reinterpret_cast<const int*>(src + ip * ic);
+      int acc = 0;
+      for (int k = 0; k < k4; ++k) acc = __dp4a(xw[k], __ldg(w4 + k * oc + c), acc);
+      dst[e] = requant(acc + __ldg(d + c), __ldg(b0 + c), __ldg(c1 + c), lo, hi, exact);
+    }
+  }
+}
+
+// FullyConnected: one warp an output, lanes over K, then a shuffle sum
+// (integer, so the order does not matter).  Weights are [N][K].
+__device__ void op_fc(const Op& op, const int8_t* src, int8_t* dst) {
+  const int K = op[F_IN], N = op[F_OUT], zp = op[F_ZP], exact = op[F_EXACT];
+  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
+  const int8_t* w = op.at<int8_t>(F_W);
+  const float* b0 = op.at<float>(F_BIAS);
+  const float* c1 = op.at<float>(F_C1);
+  const int lane = threadIdx.x & 31;
+  for (int n = threadIdx.x >> 5; n < N; n += kThreads / 32) {
+    const int8_t* wr = w + (size_t)n * K;
+    int acc = 0;
+    for (int k = lane; k < K; k += 32) acc += ((int)src[k] - zp) * (int)__ldg(wr + k);
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+    if (lane == 0) dst[n] = requant(acc, __ldg(b0 + n), __ldg(c1 + n), lo, hi, exact);
+  }
+}
+
+// AveragePool: in-bounds sum (true zeros outside), then
+// roundf(c0 * (recip[p] * f32(sum)) + c1), clamped.
+__device__ void op_pool(const Op& op, const int8_t* src, int8_t* dst) {
+  const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
+  const int oh = op[F_OH], ow = op[F_OW];
+  const int kh = op[F_KH], kw = op[F_KW], sr = op[F_SR], sc = op[F_SC];
+  const int pt = op[F_PT], pl = op[F_PL];
+  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
+  const float c0 = __int_as_float(op[F_S0]), c1 = __int_as_float(op[F_S1]);
+  const float* recip = op.at<float>(F_RECIP);
+  const int total = oh * ow * ic;
+  for (int e = threadIdx.x; e < total; e += kThreads) {
+    const int ch = e % ic, p = e / ic;
+    const int r0 = (p / ow) * sr - pt, q0 = (p % ow) * sc - pl;
+    int s = 0;
+    for (int dh = 0; dh < kh; ++dh) {
+      const int r = r0 + dh;
+      if (r < 0 || r >= ih) continue;
+      for (int dw = 0; dw < kw; ++dw) {
+        const int q = q0 + dw;
+        if (q >= 0 && q < iw) s += src[(r * iw + q) * ic + ch];
+      }
+    }
+    const float t = __fmul_rn(__ldg(recip + p), __int2float_rn(s));
+    dst[e] = mf_round_away(__fadd_rn(__fmul_rn(c0, t), c1), lo, hi);
+  }
+}
+
+// Softmax over N <= 128 entries, one thread: e = f32(q) * in_s (no zero
+// point, as the reference), expf, the total summed left to right, then
+// ex / total / out_s + out_zp with IEEE divisions, round away, clamp.
+__device__ void op_softmax(const Op& op, const int8_t* src, int8_t* dst) {
+  if (threadIdx.x != 0) return;
+  const int n = op[F_IN];
+  const float in_s = __int_as_float(op[F_S0]), out_s = __int_as_float(op[F_S1]);
+  const float zp = (float)op[F_OUTZP];
+  float total = 0.0f;
+  for (int i = 0; i < n; ++i) total = __fadd_rn(total, expf(__fmul_rn((float)src[i], in_s)));
+  for (int i = 0; i < n; ++i) {
+    const float ex = expf(__fmul_rn((float)src[i], in_s));
+    dst[i] = mf_round_away(__fadd_rn(__fdiv_rn(__fdiv_rn(ex, total), out_s), zp), -128.0f,
+                           127.0f);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
+    flat_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, long long B,
+                const unsigned char* __restrict__ plan, int n_ops, int in_elems, int out_elems,
+                int smem_a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* buf_a = reinterpret_cast<int8_t*>(smem);
+  int8_t* buf_b = reinterpret_cast<int8_t*>(smem + smem_a);
+  const int* desc = reinterpret_cast<const int*>(plan);
+  const bool vec_in = (in_elems & 15) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vec_out = (out_elems & 15) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
+    const int8_t* xr = x + b * in_elems;
+    if (vec_in) {
+      for (int i = threadIdx.x; i < (in_elems >> 4); i += kThreads)
+        reinterpret_cast<int4*>(buf_b)[i] = __ldg(reinterpret_cast<const int4*>(xr) + i);
+    } else {
+      for (int i = threadIdx.x; i < in_elems; i += kThreads) buf_b[i] = __ldg(xr + i);
+    }
+    __syncthreads();
+    const int8_t* src = buf_b;
+    for (int o = 0; o < n_ops; ++o) {
+      const Op op{desc + o * NF, plan};
+      int8_t* dst = (o & 1) ? buf_b : buf_a;
+      switch (op[F_KIND]) {
+        case K_DW:
+          if (op[F_VEC]) op_dw_vec(op, src, dst);
+          else op_dw(op, src, dst);
+          break;
+        case K_CONV: op_conv(op, src, dst); break;
+        case K_PW: op_pw(op, src, dst); break;
+        case K_FC: op_fc(op, src, dst); break;
+        case K_POOL: op_pool(op, src, dst); break;
+        default: op_softmax(op, src, dst); break;
+      }
+      __syncthreads();
+      src = dst;
+    }
+    int8_t* orow = out + b * out_elems;
+    if (vec_out) {
+      for (int i = threadIdx.x; i < (out_elems >> 4); i += kThreads)
+        reinterpret_cast<int4*>(orow)[i] = reinterpret_cast<const int4*>(src)[i];
+    } else {
+      for (int i = threadIdx.x; i < out_elems; i += kThreads) orow[i] = src[i];
+    }
+    __syncthreads();  // the next sample's input overwrites buffer B
+  }
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes).  plan: the device buffer of
+// kernels/flatpack.py::pack_plan; smem_a/smem_b: its two buffer sizes.
+// Returns the CUDA error code (0 on success); a launch the card refuses,
+// for too much shared memory for example, returns its error here.
+extern "C" int mf_flatpack(const void* x, void* out, long long B, const void* plan, int n_ops,
+                           int in_elems, int out_elems, int smem_a, int smem_b, void* stream) {
+  if (B <= 0 || n_ops <= 0 || in_elems <= 0 || out_elems <= 0) return (int)cudaErrorInvalidValue;
+  const int smem = smem_a + smem_b;
+  cudaError_t err =
+      cudaFuncSetAttribute(flat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flat_kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long grid = B < (long long)per_sm * sms ? B : (long long)per_sm * sms;
+  flat_kernel<<<(unsigned)grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<int8_t*>(out), B,
+      static_cast<const unsigned char*>(plan), n_ops, in_elems, out_elems, smem_a);
+  return (int)cudaGetLastError();
+}

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C entry point and no PyTorch headers,
 so ``nvcc`` builds it in seconds into ``build/torch_ext/`` at the root of
 the checkout (``.gitignore`` lists ``build/``), and ``ctypes`` loads it.
-The library's file name carries a hash of its source and flags, so a
-changed source is rebuilt and an unchanged one is reused.  All sources
+The library's file name carries a hash of its source, of every
+``csrc/*.cuh`` header it includes, and of the flags, so a changed source
+or shared header is rebuilt and an unchanged one is reused.  All sources
 build in parallel, one ``nvcc`` each.  Nothing here runs at import time:
 the CPU tests import this module on machines without ``nvcc``.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -38,6 +40,8 @@ SIGNATURES = {
     "qgemm": ("mf_qgemm", [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _I, _I, _P]),
     "qdwconv": ("mf_qdwconv",
                 [_P, _P, _P, _P, _P, _P] + [_I] * 10 + [_F, _F, _I, _P]),
+    "flatpack": ("mf_flatpack", [_P, _P, _L, _P, _I, _I, _I, _I, _I, _P]),
+    "colfc": ("mf_colfc", [_P, _P, _L, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -51,9 +55,26 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path: str, seen: set) -> list[bytes]:
+    """The bytes of ``path`` and, recursively, of every file it includes
+    with ``#include "..."`` (resolved beside it), each once."""
+    if path in seen:
+        return []
+    seen.add(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    out = [text]
+    for inc in _INCLUDE.findall(text):
+        out += _sources(os.path.join(os.path.dirname(path), inc.decode()), seen)
+    return out
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    parts = _sources(os.path.join(CSRC, f"{name}.cu"), set())
+    digest = hashlib.sha256(b"\0".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 

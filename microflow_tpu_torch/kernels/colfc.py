@@ -1,0 +1,183 @@
+"""The column-FC kernel for tiny FullyConnected chains (CUDA,
+``csrc/colfc.cu``).
+
+Port of ``microflow_tpu/kernels/colfc.py::build_col_kernel``, the JAX
+package's experimental ``colfc`` backend (sine: 1 -> 16 -> 16 -> 1).  The
+TPU kernel put the batch on the vector lanes; on the card that is simply
+one thread per sample, running the whole chain with its activations in
+registers.  Every layer is a FullyConnected with ``w_zp == 0`` and both
+dims at most 32, so ``q = acc + d`` with ``d = -in_zp * colsum(W)``, then
+the ``exact2`` epilogue of the flat kernel (``kernels/flatpack.py``).
+The weights are baked into the plan at build.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..compiler.ir import FullyConnectedLayer, Graph
+from ..core.activation import activation_bounds
+from . import LAUNCHES, build
+from .flatpack import SMEM_BYTES, _f32_bits, _requant
+
+MAX_WIDTH = 32  # feature widths beyond this are not a tiny chain
+WIDTH_CLASSES = (8, 16, 32)  # the kernel's compiled widths (csrc/colfc.cu)
+HEADER = 8  # int32 words per layer header in the packed plan
+
+
+def plan_col(graph: Graph, max_width: int = MAX_WIDTH):
+    """The column plan: every layer a FullyConnected with w_zp == 0 and
+    both dims <= max_width.  Returns [(W_T i32 [N,K], d [N,1] i32,
+    bias0 [N,1] f32, c1 [N,1] f32, clip_lo, clip_hi)] or None."""
+    if np.dtype(graph.input_dtype) != np.int8:
+        return None
+    k0 = int(np.prod(graph.input_shape))
+    if k0 > max_width:
+        return None
+    plan = []
+    k_in = k0
+    for layer in graph.layers:
+        if not isinstance(layer, FullyConnectedLayer):
+            return None
+        if np.any(np.atleast_1d(layer.w_q.zero_point) != 0):
+            return None
+        k, n = layer.weights.shape
+        if k != k_in or n > max_width or k > max_width:
+            return None
+        w = layer.weights.astype(np.int64)
+        d = (-np.int64(layer.in_q.zp0) * w.sum(axis=0)).astype(np.int64)
+        if np.any(d != d.astype(np.int32)):
+            return None
+        bias0 = (np.float32(layer.out_q.zp0) + layer.c0.astype(np.float32)).reshape(n, 1)
+        c1 = (np.full((n, 1), np.float32(layer.c1), np.float32) if np.ndim(layer.c1) == 0
+              else np.asarray(layer.c1, np.float32).reshape(n, 1))
+        lo, hi = activation_bounds(layer.activation, layer.out_q.scale0, layer.out_q.zp0)
+        plan.append((layer.weights.T.astype(np.int32), d.astype(np.int32).reshape(n, 1),
+                     bias0.astype(np.float32), c1.astype(np.float32), lo, hi))
+        k_in = n
+    return plan if len(plan) >= 1 else None
+
+
+def f32_exact(plan) -> bool:
+    """Whether every partial sum of every layer, the ``d`` seed included,
+    stays inside f32's exact-integer range (< 2**24).  Activations reach
+    -128, so the bound is 128 * sum|w| (the JAX package's 127 misses the
+    -128 input; ROADMAP.md queue C)."""
+    for wt, d, *_ in plan:
+        worst = 128 * int(np.abs(wt.astype(np.int64)).sum(axis=1).max()) + int(np.abs(d).max())
+        if worst >= 2**24:
+            return False
+    return True
+
+
+def colfc_reference(plan, x: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of the kernel: int8 [B, K0] -> int8
+    [B, N_out].  The product is float64, exact; the epilogue is ``exact2``
+    (``bias0 + c1 * f32(acc)``, multiply then add, then
+    ``trunc(y + (y >= 0 ? 0.5 : -0.5))`` clipped)."""
+    dev = x.device
+    for wt, d, b0, c1, lo, hi in plan:
+        acc = x.to(torch.float64) @ torch.from_numpy(wt).to(dev, torch.float64).T
+        acc = acc + torch.from_numpy(d[:, 0]).to(dev, torch.float64)
+        x = _requant(acc, torch.from_numpy(b0[:, 0]).to(dev), torch.from_numpy(c1[:, 0]).to(dev),
+                     lo, hi, "exact2")
+    return x
+
+
+def _width_class(n: int) -> int:
+    return next(c for c in WIDTH_CLASSES if n <= c)
+
+
+def pack_col_plan(plan, compute: str) -> np.ndarray:
+    """The plan as one int32 buffer: per layer a header (K, N, K class,
+    N class, lo and hi as f32 bits, data offset in words), then per layer
+    ``W_T`` zero-padded to [N class][K class] and ``d`` (both i32, or f32
+    for ``compute="f32"``), ``bias0`` and ``c1`` (f32), each padded to the
+    N class."""
+    n_layers = len(plan)
+    header = np.zeros((n_layers, HEADER), np.int32)
+    data, off = [], n_layers * HEADER
+    for i, (wt, d, b0, c1, lo, hi) in enumerate(plan):
+        n, k = wt.shape
+        km, nm = _width_class(k), _width_class(n)
+        w = np.zeros((nm, km), np.int32)
+        w[:n, :k] = wt
+        dd = np.zeros(nm, np.int32)
+        dd[:n] = d[:, 0]
+        if compute == "f32":
+            w, dd = w.astype(np.float32).view(np.int32), dd.astype(np.float32).view(np.int32)
+        bb, cc = np.zeros(nm, np.float32), np.zeros(nm, np.float32)
+        bb[:n], cc[:n] = b0[:, 0], c1[:, 0]
+        header[i] = (k, n, km, nm, _f32_bits(lo), _f32_bits(hi), off, 0)
+        for arr in (w.reshape(-1), dd, bb.view(np.int32), cc.view(np.int32)):
+            data.append(arr)
+            off += arr.size
+    return np.concatenate([header.reshape(-1)] + data)
+
+
+class ColKernel:
+    """``col_fn``: int8 [B, K0] -> int8 [B, N_out].  CUDA tensors launch the
+    kernel on the plan's device buffer (built once); CPU tensors run
+    ``colfc_reference``."""
+
+    def __init__(self, plan, compute: str, device: torch.device):
+        self.plan = plan
+        self.compute = compute
+        self.k0 = plan[0][0].shape[1]
+        self.n_out = plan[-1][0].shape[0]
+        self.device = device
+        self.buf = None
+        if device.type == "cuda":
+            self.buf = torch.from_numpy(pack_col_plan(plan, compute)).to(device)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cpu":
+            return colfc_reference(self.plan, x)
+        if x.device.type != "cuda":
+            raise ValueError(f"colfc: unsupported device {x.device}")
+        if self.buf is None or x.device != self.buf.device:
+            raise ValueError(f"colfc: the plan was built for {self.device}, not {x.device}")
+        if (x.dim() != 2 or x.shape[1] != self.k0 or x.dtype != torch.int8
+                or not x.is_contiguous()):
+            raise ValueError(f"colfc: x must be contiguous int8 [B, {self.k0}], got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        b = x.shape[0]
+        out = torch.empty((b, self.n_out), dtype=torch.int8, device=x.device)
+        if b == 0:
+            return out
+        fn = build.library("colfc").mf_colfc
+        with torch.cuda.device(x.device):
+            rc = fn(x.data_ptr(), out.data_ptr(), b, self.buf.data_ptr(), len(self.plan),
+                    self.buf.numel(), self.k0, self.n_out, int(self.compute == "f32"),
+                    torch.cuda.current_stream().cuda_stream)
+        build.check(rc, "colfc")
+        LAUNCHES["colfc"] += 1
+        return out
+
+
+def build_col_kernel(graph: Graph, compute: str = "i32", device=None):
+    """Plan the chain and make its kernel for ``device`` (None means CUDA,
+    which must be present).  Returns ``(col_fn, meta)`` with meta keys
+    ``k0``, ``n_out`` and ``compute`` (the mode in use), or None when the
+    graph is not a tiny FC chain or
+    its plan does not fit one block's shared memory.  ``col_fn`` takes any
+    batch: no transposes, no batch tile.
+
+    ``compute``: ``"i32"`` accumulates in integers; ``"f32"`` in f32, which
+    is exact, and so gives the same bits, while every partial sum stays
+    below 2**24 -- otherwise it falls back to ``"i32"``."""
+    if compute not in ("f32", "i32"):
+        raise ValueError(f"compute {compute!r}")
+    from ..compiler.builder import resolve_device
+
+    device = resolve_device(device)
+    plan = plan_col(graph)
+    if plan is None:
+        return None
+    if compute == "f32" and not f32_exact(plan):
+        compute = "i32"
+    if pack_col_plan(plan, compute).nbytes > SMEM_BYTES:
+        return None
+    col_fn = ColKernel(plan, compute, device)
+    return col_fn, dict(k0=col_fn.k0, n_out=col_fn.n_out, compute=compute)

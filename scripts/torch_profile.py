@@ -2,10 +2,12 @@
 """Where the time goes in the torch port's person_detect forward on one
 CUDA card (an H100).
 
-    python3 scripts/torch_profile.py [--batch 8192] [--iters 3] [--trace PATH]
+    python3 scripts/torch_profile.py [--backend auto] [--batch 8192] [--iters 3] [--trace PATH]
 
-Runs ``predict_inner`` of ``microflow_tpu_torch`` (default backend: the
-hand-written kernels) under ``torch.profiler`` and prints one JSON line:
+Runs ``predict_inner`` of ``microflow_tpu_torch`` (``--backend``: ``auto``,
+the default, is the flat whole-network kernel on CUDA; ``pallas`` the
+per-op kernels; ``xla`` the plain torch ops) under ``torch.profiler`` and
+prints one JSON line:
 the wall time per forward, the device-busy share of it, device time per
 kernel name grouped into the port's kernels and PyTorch's own, and the
 top PyTorch operators by device time.  ``--trace`` also writes the
@@ -32,6 +34,7 @@ from microflow_tpu_torch.models import person_detect  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--backend", default="auto", help="auto, flat, pallas or xla")
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--trace", help="write the Chrome trace to this path")
@@ -41,7 +44,7 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    m = person_detect()
+    m = person_detect(backend=args.backend)
     rng = np.random.default_rng(0)
     xq = torch.from_numpy(rng.integers(-128, 128, (args.batch, 96, 96, 1), dtype=np.int8)).cuda()
     for _ in range(2):
@@ -59,7 +62,8 @@ def main() -> int:
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.device_time_total / 1e3
     per_fwd = {k: v / args.iters for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])}
-    ours = {k: v for k, v in per_fwd.items() if "qgemm_kernel" in k or "qdwconv_kernel" in k}
+    ours = {k: v for k, v in per_fwd.items()
+            if any(n in k for n in ("qgemm_kernel", "qdwconv_kernel", "flat_kernel"))}
     device_ms = sum(per_fwd.values())
     ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     top_ops = [{"op": e.key, "device_ms_per_forward": e.self_device_time_total / 1e3 / args.iters,

@@ -15,10 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from microflow_tpu_torch import compile_tflite
+from microflow_tpu_torch import compile_tflite, parse
 from microflow_tpu_torch.core import FusedActivation as TAct
 from microflow_tpu_torch.kernels import (
     LAUNCHES,
+    build_col_kernel,
+    build_flat_kernel,
+    colfc_reference,
+    flat_forward_reference,
     qdwconv,
     qdwconv_reference,
     qgemm,
@@ -94,15 +98,49 @@ def test_qdwconv_kernel_matches_plain(cuda, B, H, W, C, kh, kw, sr, sc):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,max_layers,requant", [
+    ("sine", None, "exact2"), ("speech", None, "exact2"), ("speech", None, "exact"),
+    ("person_detect", None, "exact2"), ("person_detect", 2, "exact2"),
+    ("person_detect", 12, "exact")])
+def test_flat_kernel_matches_plain(cuda, name, max_layers, requant):
+    g = parse(model_path(name))
+    flat_fn, n, meta = build_flat_kernel(g, max_layers=max_layers, requant=requant, device=cuda)
+    rng = np.random.default_rng(n)
+    for batch in (64, 3, 0):
+        x = torch.from_numpy(rng.integers(-128, 128, (batch, meta["in_lanes"]), dtype=np.int8))
+        before = LAUNCHES["flatpack"]
+        got = flat_fn(x.to(cuda))
+        assert LAUNCHES["flatpack"] == before + (batch > 0)
+        assert got.shape == (batch, meta["out_lanes"])
+        assert torch.equal(got, flat_forward_reference(flat_fn.ops, x.to(cuda), requant))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["i32", "f32"])
+def test_colfc_kernel_matches_plain(cuda, compute):
+    col_fn, meta = build_col_kernel(parse(model_path("sine")), compute=compute, device=cuda)
+    assert meta["compute"] == compute
+    x = torch.from_numpy(np.random.default_rng(1).integers(-128, 128, (1000, 1), dtype=np.int8))
+    before = LAUNCHES["colfc"]
+    got = col_fn(x.to(cuda))
+    assert LAUNCHES["colfc"] == before + 1
+    assert torch.equal(got, colfc_reference(col_fn.plan, x.to(cuda)))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["sine", "speech", "person_detect"])
 def test_models_on_the_card(cuda, name):
-    """Goldens through the default backend (the kernels), and the kernel
-    backend bit-equal to the plain backend on random inputs."""
+    """Goldens through the default backend (the flat kernel for the conv
+    graphs, the per-op kernels for sine), and every kernel backend
+    bit-equal to the plain backend on random inputs."""
     x, want = GOLDENS[name]
     m = compile_tflite(model_path(name))
-    assert m.backend == "pallas"
+    assert m.backend == ("pallas" if name == "sine" else "flat")
     assert np.array_equal(m.predict(x).cpu().numpy(), want)
     plain = compile_tflite(model_path(name), backend="xla")
     rng = np.random.default_rng(5)
     xq = torch.from_numpy(rng.integers(-128, 128, (64, *m.graph.input_shape), dtype=np.int8))
-    assert torch.equal(m.predict_inner(xq.to(cuda)), plain.predict_inner(xq.to(cuda)))
+    want_q = plain.predict_inner(xq.to(cuda))
+    for backend in ("flat", "pallas") + (("colfc",) if name == "sine" else ()):
+        k = compile_tflite(model_path(name), backend=backend)
+        assert torch.equal(k.predict_inner(xq.to(cuda)), want_q), backend

@@ -58,11 +58,25 @@ def test_params_from_numpy_perturbed(name, tmp_path):
     assert np.abs(after - np.asarray(xj).astype(np.int64)).max() <= 1
 
 
+@pytest.mark.parametrize("name,backend", [("speech", "flat"), ("sine", "colfc")])
+def test_params_swap_refused_where_weights_are_baked(name, backend):
+    """The whole-network kernels read the weights baked into their plan at
+    build, so a model on those backends refuses new params rather than
+    ignoring them."""
+    m = compile_tflite(model_path(name), backend=backend, device="cpu")
+    with pytest.raises(ValueError, match="bakes the weights"):
+        m.params = params_from_numpy(m.params, "cpu")
+    m = compile_tflite(model_path(name), backend="pallas", device="cpu")
+    m.params = params_from_numpy(m.params, "cpu")
+
+
 def test_backend_names(tmp_path):
     path = model_path("sine")
     assert compile_tflite(path, device="cpu").backend == "xla"
     assert compile_tflite(path, backend="pallas", device="cpu").backend == "pallas"
-    for name in ("flat", "fused", "hybrid", "packed", "colfc"):
+    for name in ("flat", "colfc"):
+        assert compile_tflite(path, backend=name, device="cpu").backend == name
+    for name in ("fused", "hybrid", "packed"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             compile_tflite(path, backend=name, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):

@@ -9,6 +9,12 @@ fused multiply-add emulated in float64 (the product of two f32 values is
 exact there).  On them the port must give the multiply-then-add result;
 everywhere else it must equal the JAX output.  Softmax may differ by one
 LSB (``expf`` ULPs and summation order).
+
+The whole-network kernels (flat, colfc) round with the TPU kernels'
+``exact2`` (``trunc(y + (y >= 0 ? 0.5 : -0.5))``) instead of round-half-away;
+``epilogue_pair(..., rounding="exact2")`` gives their pair, and against the
+XLA oracle the ``exact2`` corner ``exact2_corner`` (y = +-(0.5 - 2**-25))
+is allowed besides the FMA set.
 """
 
 from __future__ import annotations
@@ -28,13 +34,12 @@ from microflow_tpu.compiler.ir import (
 )
 from microflow_tpu.core.activation import FusedActivation, quantize_scalar
 from microflow_tpu_torch.compiler import builder as tbuilder
+from microflow_tpu_torch.core.numerics import broadcast_per_channel as _per_channel
+from microflow_tpu_torch.core.numerics import np_epilogue as epilogue_values
+from microflow_tpu_torch.core.numerics import np_exact2 as exact2
+from microflow_tpu_torch.core.numerics import np_round_away as round_away
 
 F32 = np.float32
-
-
-def round_away(y: np.ndarray) -> np.ndarray:
-    t = np.trunc(y)
-    return t + np.sign(y) * (np.abs(y - t) >= 0.5)
 
 
 def bounds(activation, out_scale, out_zp, dtype) -> tuple[int, int]:
@@ -47,14 +52,21 @@ def bounds(activation, out_scale, out_zp, dtype) -> tuple[int, int]:
     return lo, hi
 
 
-def epilogue_pair(a, b, add, lo, hi):
-    """Integer outputs of ``clip(roundf(add + a*b))`` computed as a multiply
-    then an add (the reference) and as one fused multiply-add."""
-    a, b, add = (np.asarray(v, F32) for v in (a, b, add))
-    sep = (add + (a * b).astype(F32)).astype(F32)
-    fma = (add.astype(np.float64) + a.astype(np.float64) * b.astype(np.float64)).astype(F32)
-    return (np.clip(round_away(sep), lo, hi).astype(np.int64),
-            np.clip(round_away(fma), lo, hi).astype(np.int64))
+def epilogue_pair(a, b, add, lo, hi, rounding: str = "round_away"):
+    """Integer outputs of ``clip(round(add + a*b))`` computed as a multiply
+    then an add (the reference) and as one fused multiply-add; ``round`` is
+    round-half-away or, with ``rounding="exact2"``, ``exact2``."""
+    rnd = exact2 if rounding == "exact2" else round_away
+    sep, fma = epilogue_values(a, b, add)
+    return (np.clip(rnd(sep), lo, hi).astype(np.int64),
+            np.clip(rnd(fma), lo, hi).astype(np.int64))
+
+
+def exact2_corner(a, b, add, lo, hi) -> np.ndarray:
+    """Where ``exact2`` and round-half-away give other integers for the
+    multiply-then-add value: y = +-(0.5 - 2**-25)."""
+    sep, _ = epilogue_values(a, b, add)
+    return np.clip(exact2(sep), lo, hi) != np.clip(round_away(sep), lo, hi)
 
 
 def assert_fma_rule(port: np.ndarray, ref: np.ndarray, sep: np.ndarray, fma: np.ndarray,
@@ -74,10 +86,6 @@ def assert_fma_rule(port: np.ndarray, ref: np.ndarray, sep: np.ndarray, fma: np.
     return int(sens.sum())
 
 
-def _per_channel(values, n, dtype):
-    return np.array([values[i] if i < len(values) else values[0] for i in range(n)], dtype)
-
-
 def _patches(x: np.ndarray, geom, pad_value: int) -> np.ndarray:
     """[B,H,W,C] -> [B,OH,OW,KH,KW,C] with the reference's padding."""
     top, bottom, left, right = geom.pad_amounts()
@@ -92,9 +100,11 @@ def _patches(x: np.ndarray, geom, pad_value: int) -> np.ndarray:
     return out
 
 
-def expected_pair(layer, params: dict, x: np.ndarray):
-    """(multiply-then-add, fused) integer outputs of a requantizing layer,
-    from its exact accumulator; None for layers without that epilogue."""
+def epilogue_terms(layer, params: dict, x: np.ndarray):
+    """``(c1, f32(q), bias0, lo, hi, conv)`` of a requantizing layer on input
+    ``x``, from its exact accumulator; ``conv`` is False for the pool (whose
+    epilogue is ``c1 + c0*mean``, round-half-away in every backend).  None
+    for layers without that epilogue."""
     dtype = np.dtype(x.dtype)
     if isinstance(layer, (FullyConnectedLayer, Conv2DLayer, DepthwiseConv2DLayer)):
         p = {k: np.asarray(v) for k, v in params[f"layer{layer.index}"].items()}
@@ -123,14 +133,51 @@ def expected_pair(layer, params: dict, x: np.ndarray):
             pt = _patches(xs, layer.geom, in_zp) - in_zp
             q = np.einsum("bijmnc,mnc->bijc", pt, wc)
             c1 = _per_channel(layer.c1, ch, F32)
-        return epilogue_pair(c1, q.astype(F32), bias0, lo, hi)
+        return c1, q.astype(F32), bias0, lo, hi, True
     if isinstance(layer, AveragePool2DLayer):
         lo, hi = bounds(layer.activation, layer.out_q.scale0, layer.out_q.zp0, dtype)
         s = _patches(x, layer.geom, 0).sum(axis=(3, 4))
         recip = (F32(1.0) / layer.geom.len_plane().astype(F32)).astype(F32)
         mean = (recip[None, :, :, None] * s.astype(F32)).astype(F32)
-        return epilogue_pair(layer.c0, mean, layer.c1, lo, hi)
+        return layer.c0, mean, layer.c1, lo, hi, False
     return None
+
+
+def expected_pair(layer, params: dict, x: np.ndarray, rounding: str = "round_away"):
+    """(multiply-then-add, fused) integer outputs of a requantizing layer,
+    from its exact accumulator; None for layers without that epilogue.
+    ``rounding="exact2"`` rounds the conv/FC epilogues as the whole-network
+    kernels do (the pool keeps round-half-away)."""
+    terms = epilogue_terms(layer, params, x)
+    if terms is None:
+        return None
+    *abl, conv = terms
+    return epilogue_pair(*abl, rounding=rounding if conv else "round_away")
+
+
+def chain_sets(jgraph, jparams, x0: np.ndarray, n_layers: int | None = None) -> dict:
+    """Run the JAX XLA layer chain (each layer jitted, as the JAX package
+    runs it) on ``x0`` and count, along it, the elements where an FMA
+    rounds otherwise than a multiply then an add (under either rounding)
+    and the ``exact2`` corners.  Returns the counts and the chain's
+    outputs (``"outputs"``, one per layer)."""
+    x, outs = x0, []
+    counts = {"fma": 0, "fma_exact2": 0, "exact2_corner": 0}
+    for lj in jgraph.layers[:n_layers]:
+        terms = epilogue_terms(lj, jparams, x)
+        if terms is not None:
+            *abl, conv = terms
+            sep, fma = epilogue_pair(*abl)
+            counts["fma"] += int((sep != fma).sum())
+            if conv:
+                sep2, fma2 = epilogue_pair(*abl, rounding="exact2")
+                counts["fma_exact2"] += int((sep2 != fma2).sum())
+                counts["exact2_corner"] += int(exact2_corner(*abl).sum())
+        run = jax.jit(lambda p, v, layer=lj: jbuilder.apply_layer(layer, p, v, "xla"))
+        x = np.asarray(run(jparams, jnp.asarray(x)))
+        outs.append(x)
+    counts["outputs"] = outs
+    return counts
 
 
 def teacher_forced(jgraph, tgraph, jparams, tparams, x0: np.ndarray,
