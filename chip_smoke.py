@@ -8,33 +8,49 @@ the kernels are built for ``sm_90a``).  Phases, each printing one JSON
 line; any failure raises and the script exits non-zero:
 
 1. device: CUDA must be present; the card's name and power limit.
-2. build: the four kernels of ``microflow_tpu_torch/csrc/`` with ``nvcc``,
+2. build: the six kernels of ``microflow_tpu_torch/csrc/`` with ``nvcc``,
    in parallel.
 3. kernels: each kernel held bit-equal against its plain torch version:
    ``qgemm``/``qdwconv`` at every layer shape of sine, speech and
    person_detect (batch 64) and on edge cases; ``flatpack`` on
    person_detect (whole, and its first 2 and 12 layers), speech and sine at
    batches 64, 3 and 0, and on a small conv graph (and two prefixes) whose
-   ops take the kernel's general paths; ``colfc`` on sine in both compute modes at batch
-   1000; both whole-network kernels on two small FC graphs whose constants
-   put the epilogue on the ``exact2`` corners, on +-k.5 and the ulps around
-   them, past both rails, and on multiply-add triples that an FMA would
-   round otherwise.  Then each is timed beside its plain version and its
-   bound: the per-op kernels at person_detect's shapes at batch 8192
-   (``qgemm`` also beside ``torch._int_mm``), ``flatpack`` on person_detect
-   and speech at batch 8192, ``colfc`` on sine at batch 1,048,576.
+   ops take the kernel's general paths; ``colfc`` on sine in both compute
+   modes at batch 1000; ``megakernel`` on every segment of person_detect's
+   ``fused`` and ``hybrid`` forwards, speech's and sine's ``fused``, the
+   conv graph and its variant with a leading Quantize and nonzero weight
+   zero points, at batches 64, 3 and 0;
+   ``packed`` on person_detect's prefixes (whole, 5, 9 and 15 layers) and
+   a small packable graph at batches 64, 3 and 0; ``flatpack``, ``colfc``
+   and ``megakernel`` on two small FC graphs whose constants put the
+   epilogue on the ``exact2`` corners (counted: the megakernel rounds half
+   away there), on +-k.5 and the ulps around them, past both rails, and on
+   multiply-add triples that an FMA would round otherwise.  Then each is
+   timed beside its plain version and its bound: the per-op kernels at
+   person_detect's shapes at batch 8192 (``qgemm`` also beside
+   ``torch._int_mm``), ``flatpack`` on person_detect and speech at batch
+   8192, ``colfc`` on sine at batch 1,048,576, ``megakernel`` (person_detect's
+   fused segment) and ``packed`` (its prefix) at batch 8192.
 4. main paths, each driven with the launch counts set to 0 just before it
    and read just after: the three Rust goldens through ``compile_tflite``
    with the default backend (``"flat"`` for person_detect and speech,
    ``"pallas"`` for sine) and 4 person_detect requests (4 ``flatpack``
    launches, no per-op kernel); the same 4 requests through
    ``backend="pallas"`` (slice 1's path: 14 ``qgemm`` and 14 ``qdwconv``
-   launches a forward); 4 sine requests through ``backend="colfc"``.
-5. whole model: ``flat``, ``pallas`` and (sine) ``colfc`` bit-equal to the
-   plain torch backend ``xla`` on random int8 inputs, batch 1024.
+   launches a forward); 4 sine requests through ``backend="colfc"``; the 4
+   person_detect requests through ``"fused"`` (1 ``megakernel`` launch a
+   forward), ``"hybrid"`` (1 ``megakernel``, 5 ``qdwconv``, 4 ``qgemm``)
+   and ``"packed"`` (1 ``packed``, 2 ``qdwconv``, 3 ``qgemm``), each with
+   person_detect's golden, and the sine and speech goldens through
+   ``"fused"`` and ``"hybrid"``; 4 speech requests through ``"fused"`` (2
+   ``megakernel`` launches a forward).
+5. whole model: ``flat``, ``pallas``, ``fused``, ``hybrid``, (sine)
+   ``colfc`` and (person_detect) ``packed`` bit-equal to the plain torch
+   backend ``xla`` on random int8 inputs, batch 1024.
 6. throughput: ``predict_inner`` inferences/s of person_detect through
    ``flat`` and ``pallas`` in turns (flat, pallas, pallas, flat) at batch
-   8192 and 32768, and of speech at batch 8192.
+   8192 and 32768, and of speech at batch 8192; then person_detect through
+   ``fused``, ``hybrid`` and ``packed`` at batch 8192, once each.
 
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  In the kernels line ``launches`` is the
@@ -42,9 +58,10 @@ count from the kernel's main path in phase 4; ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are, for ``qgemm`` and ``qdwconv``, sums
 over their 14 launches in one person_detect forward at batch 8192 (per
 launch in the ``kernel_times`` line), for ``flatpack`` one person_detect
-forward at batch 8192, for ``colfc`` one sine forward at batch 1,048,576.
-No single PyTorch call computes a whole network, so the whole-network
-kernels have no ``library_ms``.
+forward at batch 8192, for ``colfc`` one sine forward at batch 1,048,576,
+for ``megakernel`` and ``packed`` one launch on person_detect at batch
+8192.  No single PyTorch call computes a whole network or a segment, so
+those four kernels have no ``library_ms``.
 """
 
 from __future__ import annotations
@@ -66,10 +83,11 @@ from microflow_tpu_torch.compiler.ir import (
     FullyConnectedLayer,
     Graph,
     QuantInfo,
+    QuantizeLayer,
     ReshapeLayer,
     SoftmaxLayer,
 )
-from microflow_tpu_torch.core.activation import FusedActivation
+from microflow_tpu_torch.core.activation import FusedActivation, activation_bounds
 from microflow_tpu_torch.core.numerics import np_epilogue, np_exact2, np_round_away
 from microflow_tpu_torch.core.tensor import ViewGeometry, ViewPadding
 from microflow_tpu_torch.kernels import (
@@ -77,10 +95,15 @@ from microflow_tpu_torch.kernels import (
     build,
     build_col_kernel,
     build_flat_kernel,
+    build_fused_forward,
+    build_packed_kernel,
     colfc_reference,
     flat_forward_reference,
+    packed_reference,
 )
 from microflow_tpu_torch.kernels.flatpack import flat_bound
+from microflow_tpu_torch.kernels.megakernel import hybrid_split_index
+from microflow_tpu_torch.kernels.packed import packed_bound
 from microflow_tpu_torch.models import GOLDENS, model_path
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
@@ -98,8 +121,16 @@ KERNEL_INFO = {
                  "replaces": "microflow_tpu/kernels/flatpack.py:662"},
     "colfc": {"source": "microflow_tpu_torch/csrc/colfc.cu",
               "replaces": "microflow_tpu/kernels/colfc.py:89"},
+    "megakernel": {"source": "microflow_tpu_torch/csrc/megakernel.cu",
+                   "replaces": "microflow_tpu/kernels/megakernel.py:371"},
+    "packed": {"source": "microflow_tpu_torch/csrc/packed.cu",
+               "replaces": "microflow_tpu/kernels/packed.py:433"},
 }
 PD_FORWARD = {"qgemm": 14, "qdwconv": 14}  # per-op launches in one person_detect forward
+# launches of 4 person_detect requests on each megakernel/packed path
+PD_PATHS = {"fused": {"megakernel": 4},
+            "hybrid": {"megakernel": 4, "qdwconv": 20, "qgemm": 16},  # layers 0-8 per op
+            "packed": {"packed": 4, "qdwconv": 8, "qgemm": 12}}  # layers 23-30 per op
 ACTS = (FusedActivation.NONE, FusedActivation.RELU, FusedActivation.RELU6)
 
 
@@ -306,13 +337,29 @@ def edge_graphs(rng) -> tuple[list, int]:
     return graphs, len(hit)
 
 
-def conv_graph(rng) -> Graph:
+def exact2_corners(g: Graph, sweep: np.ndarray) -> int:
+    """How many (sample, lane) outputs of an edge graph on inputs ``sweep``
+    sit on an ``exact2`` corner: ``exact2`` and round-half-away give other
+    int8 values for ``y = bias0 + c1*f32(x*w)`` (the megakernel must round
+    half away there)."""
+    layer = g.layers[1]
+    q = sweep.astype(np.int64)[:, None] * layer.weights.astype(np.int64)  # [S, N]
+    bias0 = np.float32(layer.out_q.zp0) + layer.c0.astype(np.float32)
+    y, _ = np_epilogue(np.float32(layer.c1), q.astype(np.float32), bias0[None, :])
+    lo, hi = activation_bounds(layer.activation, layer.out_q.scale0, layer.out_q.zp0)
+    return int((np.clip(np_exact2(y), lo, hi) != np.clip(np_round_away(y), lo, hi)).sum())
+
+
+def conv_graph(rng, wzp: bool = False) -> Graph:
     """A small conv graph of the port's IR, random weights, whose ops take
     the flat kernel's general paths, which the bundled models do not
     reach: a depth-multiplier stem to 6 channels, a 3x3/s2 Conv2D over 6
     channels, depthwise convs over 5 channels, a 1x1 conv over 5 channels
     and one to 6 outputs, a padded 2x2 pool, FC and softmax over 7; also a
-    depthwise and a 1x1 conv on the ``__dp4a`` paths."""
+    depthwise and a 1x1 conv on the ``__dp4a`` paths.  With ``wzp`` (the
+    megakernel's variant): a leading int8 QuantizeLayer, and nonzero
+    per-channel weight zero points on the 3x3/s2 conv, the 3x3 depthwise
+    conv after it and the 1x1 conv to 12, and a nonzero one on the FC."""
     q = lambda zp: QuantInfo(np.array([rng.uniform(0.01, 0.1)], np.float32),
                              np.array([zp], np.int64))
     zps = iter(rng.integers(-128, 100, 16).tolist())
@@ -326,7 +373,11 @@ def conv_graph(rng) -> Graph:
                   else ((h - k) // s + 1, (w - k) // s + 1))
         return ViewGeometry(h, w, k, k, oh, ow, s, s, pad)
 
-    def add(kind, *spec):
+    def w_q(n, nonzero):
+        zp = rng.choice([-9, -4, -1, 1, 3, 8], n) if nonzero else np.zeros(1, np.int64)
+        return QuantInfo(np.ones(len(zp), np.float32), np.asarray(zp, np.int64))
+
+    def add(kind, *spec, nonzero=False):
         nonlocal shape, in_q
         i = len(layers)
         out_q = q(next(zps))
@@ -336,16 +387,18 @@ def conv_graph(rng) -> Graph:
             g = geom(k, s, ViewPadding.SAME)
             c1 = rng.uniform(1e-3, 1e-2, c_out).astype(np.float32)
             c0 = rng.normal(0, 20, c_out).astype(np.float32)
-            w_q = QuantInfo(np.ones(1, np.float32), np.zeros(1, np.int64))
+            wq = w_q(c_out, nonzero)
             if kind == "conv":
                 f = rng.integers(-127, 128, (c_out, k, k, shape[2])).astype(np.int8)
-                layers.append(Conv2DLayer(i, f, in_q, w_q, w_q, out_q, c0, c1, g, act,
+                layers.append(Conv2DLayer(i, f, in_q, wq, wq, out_q, c0, c1, g, act,
                                           (g.out_rows, g.out_cols, c_out)))
             else:
                 w = rng.integers(-127, 128, (k, k, c_out)).astype(np.int8)
-                layers.append(DepthwiseConv2DLayer(i, w, in_q, w_q, w_q, out_q, c0, c1, g,
+                layers.append(DepthwiseConv2DLayer(i, w, in_q, wq, wq, out_q, c0, c1, g,
                                                    act, (g.out_rows, g.out_cols, c_out)))
             shape = (g.out_rows, g.out_cols, c_out)
+        elif kind == "quantize":
+            layers.append(QuantizeLayer(i, in_q, out_q, np.dtype(np.int8), shape))
         elif kind == "pool":
             g = geom(2, 2, ViewPadding.SAME)
             layers.append(AveragePool2DLayer(i, in_q, out_q, np.float32(0.9), np.float32(3.0),
@@ -358,29 +411,71 @@ def conv_graph(rng) -> Graph:
         elif kind == "fc":
             (n,) = spec
             w = rng.integers(-127, 128, (shape[0], n)).astype(np.int8)
+            wq = w_q(1, nonzero)
+            # the reference's fold: c2 = in_zp * colsum(W), c3 = K * in_zp * w_zp
             layers.append(FullyConnectedLayer(
-                i, w, in_q, QuantInfo(np.ones(1, np.float32), np.zeros(1, np.int64)), in_q,
-                out_q, rng.normal(0, 20, n).astype(np.float32), np.float32(2e-3),
-                (in_q.zp0 * w.astype(np.int64).sum(0)).astype(np.int32), 0, act, False, (n,)))
+                i, w, in_q, wq, in_q, out_q, rng.normal(0, 20, n).astype(np.float32),
+                np.float32(2e-3), (in_q.zp0 * w.astype(np.int64).sum(0)).astype(np.int32),
+                shape[0] * in_q.zp0 * wq.zp0, act, False, (n,)))
             shape = (n,)
         else:
             layers.append(SoftmaxLayer(i, in_q, q(-128), shape))
             out_q = layers[-1].out_q
         in_q = out_q
 
-    for spec in (("dw", 3, 1, 6), ("conv", 3, 2, 5), ("dw", 3, 1, 5), ("dw", 3, 2, 5),
-                 ("conv", 1, 1, 8), ("dw", 3, 1, 8), ("conv", 1, 1, 12), ("conv", 1, 1, 6),
-                 ("pool",), ("reshape",), ("fc", 7), ("softmax",)):
-        add(*spec)
-    return Graph(name="conv_graph", layers=layers, input_shape=(13, 11, 1), input_q=input_q,
+    if wzp:
+        add("quantize")
+    for pos, spec in enumerate((("dw", 3, 1, 6), ("conv", 3, 2, 5), ("dw", 3, 1, 5),
+                                ("dw", 3, 2, 5), ("conv", 1, 1, 8), ("dw", 3, 1, 8),
+                                ("conv", 1, 1, 12), ("conv", 1, 1, 6), ("pool",), ("reshape",),
+                                ("fc", 7), ("softmax",))):
+        add(*spec, nonzero=wzp and pos in (1, 2, 6, 10))
+    return Graph(name="conv_graph_wzp" if wzp else "conv_graph", layers=layers,
+                 input_shape=(13, 11, 1), input_q=input_q, input_dtype=np.dtype(np.int8),
+                 output_shape=shape, output_q=in_q, output_dtype=np.dtype(np.int8))
+
+
+def packed_graph(rng) -> Graph:
+    """A small graph of the port's IR that the packed kernel takes whole:
+    int8 [16, 32, 1] -> a 3x3/s2 stem to 16 channels, a 3x3 depthwise conv,
+    a 1x1 conv to 32, a 3x3/s2 depthwise conv, a 1x1 conv 32 -> 32, a 3x3
+    depthwise conv and a 1x1 conv to 16: [4, 8, 16].  Random weights and
+    zero points, every activation."""
+    q = lambda: QuantInfo(np.array([rng.uniform(0.01, 0.1)], np.float32),
+                          np.array([int(rng.integers(-128, 100))], np.int64))
+    w_q = QuantInfo(np.ones(1, np.float32), np.zeros(1, np.int64))
+    acts = (FusedActivation.NONE, FusedActivation.RELU, FusedActivation.RELU6)
+    layers, shape, in_q = [], (16, 32, 1), q()
+    input_q = in_q
+    for i, (kind, s, c_out) in enumerate((("dw", 2, 16), ("dw", 1, 16), ("pw", 1, 32),
+                                          ("dw", 2, 32), ("pw", 1, 32), ("dw", 1, 32),
+                                          ("pw", 1, 16))):
+        k = 3 if kind == "dw" else 1
+        h, w = shape[:2]
+        g = ViewGeometry(h, w, k, k, -(-h // s), -(-w // s), s, s, ViewPadding.SAME)
+        out_q, act = q(), acts[i % 3]
+        c0 = rng.normal(0, 20, c_out).astype(np.float32)
+        if kind == "dw":
+            c1 = rng.uniform(1e-3, 1e-2, c_out).astype(np.float32)
+            w = rng.integers(-127, 128, (3, 3, c_out)).astype(np.int8)
+            layers.append(DepthwiseConv2DLayer(i, w, in_q, w_q, w_q, out_q, c0, c1, g, act,
+                                               (g.out_rows, g.out_cols, c_out)))
+        else:
+            c1 = rng.uniform(5e-4, 5e-3, c_out).astype(np.float32)
+            f = rng.integers(-127, 128, (c_out, 1, 1, shape[2])).astype(np.int8)
+            layers.append(Conv2DLayer(i, f, in_q, w_q, w_q, out_q, c0, c1, g, act,
+                                      (g.out_rows, g.out_cols, c_out)))
+        shape, in_q = (g.out_rows, g.out_cols, c_out), out_q
+    return Graph(name="packed_graph", layers=layers, input_shape=(16, 32, 1), input_q=input_q,
                  input_dtype=np.dtype(np.int8), output_shape=shape, output_q=in_q,
                  output_dtype=np.dtype(np.int8))
 
 
 def whole_network_checks(dev, rng) -> dict:
-    """``flatpack`` and ``colfc`` against their plain versions on the card:
-    max |kernel - plain| per kernel and the number of checks."""
-    errs = {"flatpack": [], "colfc": []}
+    """``flatpack``, ``colfc``, ``megakernel`` and ``packed`` against their
+    plain versions on the card: max |kernel - plain| per kernel and the
+    number of checks."""
+    errs = {"flatpack": [], "colfc": [], "megakernel": [], "packed": []}
 
     def flat_check(g, label, batches, max_layers=None):
         flat_fn, _, meta = build_flat_kernel(g, max_layers=max_layers, device=dev)
@@ -389,6 +484,26 @@ def whole_network_checks(dev, rng) -> dict:
                 rng.integers(-128, 128, (b, meta["in_lanes"]), dtype=np.int8)).to(dev)
             errs["flatpack"].append({"case": f"{label} B{b}", "max_abs_err": max_abs_err(
                 flat_fn(x), flat_forward_reference(flat_fn.ops, x))})
+
+    def mega_check(g, label, start, batches, x=None):
+        """Every segment of the fused (``start`` 0) or hybrid forward."""
+        fwd = build_fused_forward(g, start, device=dev)
+        for seg in fwd.segments:
+            idx = seg.segment.indices
+            for b in batches:
+                xs = x if x is not None else torch.from_numpy(rng.integers(
+                    -128, 128, (b, *seg.segment.in_shape), dtype=np.int8)).to(dev)
+                errs["megakernel"].append({
+                    "case": f"{label} layers {idx[0]}-{idx[-1]} B{xs.shape[0]}",
+                    "max_abs_err": max_abs_err(seg(xs), seg.reference(xs))})
+
+    def packed_check(g, label, batches, max_layers=None):
+        packed_fn, _, meta = build_packed_kernel(g, max_layers=max_layers, device=dev)
+        for b in batches:
+            x = torch.from_numpy(rng.integers(-128, 128, (b, meta["in_rows"], meta["in_cols"], 1),
+                                              dtype=np.int8)).to(dev)
+            errs["packed"].append({"case": f"{label} B{b}", "max_abs_err": max_abs_err(
+                packed_fn(x), packed_reference(packed_fn.ops, x))})
 
     def col_check(g, label, x, compute):
         col_fn, meta = build_col_kernel(g, compute=compute, device=dev)
@@ -408,16 +523,31 @@ def whole_network_checks(dev, rng) -> dict:
     xs = torch.from_numpy(rng.integers(-128, 128, (1000, 1), dtype=np.int8)).to(dev)
     for compute in ("i32", "f32"):
         col_check(sine, "sine", xs, compute)
+    batches = (64, 3, 0)
+    for name in MODELS:
+        g = parse(model_path(name))
+        mega_check(g, f"{name} fused", 0, batches)
+    mega_check(pd, "person_detect hybrid", hybrid_split_index(pd), batches)
+    for g in (cg, conv_graph(rng, wzp=True)):  # no layer of 64 channels: no hybrid segment
+        mega_check(g, f"{g.name} fused", 0, batches)
+    for max_layers in (None, 5, 9, 15):
+        packed_check(pd, f"person_detect[:{max_layers}]", batches, max_layers)
+    packed_check(packed_graph(rng), "packed_graph", batches)
     graphs, n_fma = edge_graphs(rng)
     sweep = np.concatenate([np.arange(-128, 128), rng.integers(-128, 128, 768)]).astype(np.int8)
     x = torch.from_numpy(sweep.reshape(-1, 1)).to(dev)
+    corners = {}
     for g in graphs:
         flat_fn, _, _ = build_flat_kernel(g, device=dev)
         errs["flatpack"].append({"case": g.name, "max_abs_err": max_abs_err(
             flat_fn(x), flat_forward_reference(flat_fn.ops, x))})
         for compute in ("i32", "f32"):
             col_check(g, g.name, x, compute)
-    return {"checks": errs, "fma_sensitive_lanes": n_fma}
+        mega_check(g, g.name, 0, (len(sweep),), x)
+        corners[g.name] = exact2_corners(g, sweep)
+    if not corners["edge_c1_one"]:
+        raise AssertionError("no lane of edge_c1_one on the exact2 corner")
+    return {"checks": errs, "fma_sensitive_lanes": n_fma, "exact2_corner_lanes": corners}
 
 
 # --- timing -------------------------------------------------------------------
@@ -494,41 +624,56 @@ def time_kernels(calls) -> dict:
 
 
 def time_whole_network(dev, rng) -> dict:
-    """``flatpack`` on person_detect and speech at batch 8192 and ``colfc`` on
-    sine at batch 1,048,576, beside their plain versions and bounds."""
+    """``flatpack`` on person_detect and speech at batch 8192, ``colfc`` on
+    sine at batch 1,048,576, and ``megakernel`` (the fused segment, layers
+    0-28) and ``packed`` (the prefix, layers 0-22) on person_detect at batch
+    8192, beside their plain versions and bounds."""
     res = {}
     for name in ("person_detect", "speech"):
         flat_fn, _, meta = build_flat_kernel(parse(model_path(name)), device=dev)
         x = torch.from_numpy(rng.integers(-128, 128, (8192, meta["in_lanes"]),
                                           dtype=np.int8)).to(dev)
-        nbytes, ops = flat_bound(flat_fn.ops, 8192)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
-        res[f"flatpack_{name}"] = {
-            "batch": 8192,
-            "max_abs_err": max_abs_err(flat_fn(x), flat_forward_reference(flat_fn.ops, x)),
-            "ms": time_ms(lambda: flat_fn(x), 20),
-            "plain_ms": time_ms(lambda: flat_forward_reference(flat_fn.ops, x), 3, warmup=1),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops, "library_ms": None}
+        res[f"flatpack_{name}"] = timed(flat_fn, lambda v: flat_forward_reference(flat_fn.ops, v),
+                                        x, *flat_bound(flat_fn.ops, 8192))
         del x
         torch.cuda.empty_cache()
     col_fn, meta = build_col_kernel(parse(model_path("sine")), device=dev)
     b = 1 << 20
     x = torch.from_numpy(rng.integers(-128, 128, (b, 1), dtype=np.int8)).to(dev)
     weights = sum(int(wt.size) for wt, *_ in col_fn.plan)
-    nbytes = b * (meta["k0"] + meta["n_out"]) + weights
-    ops = 2 * b * weights
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
-    res["colfc_sine"] = {
-        "batch": b, "compute": meta["compute"],
-        "max_abs_err": max_abs_err(col_fn(x), colfc_reference(col_fn.plan, x)),
-        "ms": time_ms(lambda: col_fn(x), 20),
-        "plain_ms": time_ms(lambda: colfc_reference(col_fn.plan, x), 3, warmup=1),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes, "ops": ops, "library_ms": None}
+    res["colfc_sine"] = timed(col_fn, lambda v: colfc_reference(col_fn.plan, v), x,
+                              b * (meta["k0"] + meta["n_out"]) + weights, 2 * b * weights,
+                              compute=meta["compute"])
+    pd = parse(model_path("person_detect"))
+    x = torch.from_numpy(rng.integers(-128, 128, (8192, 96, 96, 1), dtype=np.int8)).to(dev)
+    (seg,) = build_fused_forward(pd, 0, device=dev).segments
+    weights = sum(int(w.size) for w in map(layer_weights, seg.segment.layers) if w is not None)
+    nbytes = 8192 * (seg.segment.in_elems + seg.segment.out_elems) + weights
+    res["megakernel_person_detect"] = timed(
+        seg, seg.reference, x, nbytes, 2 * 8192 * seg.segment.macs(),
+        layers=f"{seg.segment.indices[0]}-{seg.segment.indices[-1]}")
+    packed_fn, n_layers, _ = build_packed_kernel(pd, device=dev)
+    nbytes, ops = packed_bound(packed_fn.ops, 8192)
+    res["packed_person_detect"] = timed(
+        packed_fn, lambda v: packed_reference(packed_fn.ops, v), x, nbytes, ops,
+        layers=f"0-{n_layers - 1}")
     return res
+
+
+def layer_weights(layer):
+    """The int8 weight array of a layer, or None."""
+    return getattr(layer, "filters", getattr(layer, "weights", None))
+
+
+def timed(kern, ref, x, nbytes: int, ops: int, **extra) -> dict:
+    """A kernel and its plain version on ``x``, beside the bound."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    return {"batch": x.shape[0], **extra, "max_abs_err": max_abs_err(kern(x), ref(x)),
+            "ms": time_ms(lambda: kern(x), 20),
+            "plain_ms": time_ms(lambda: ref(x), 3, warmup=1),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "library_ms": None}
 
 
 # --- phases -------------------------------------------------------------------
@@ -571,7 +716,8 @@ def main() -> int:
           "model_shapes": {k: len(shape_errs[k]) for k in shape_errs},
           "whole_network_cases": {k: [c["case"] for c in v]
                                   for k, v in whole_net["checks"].items()},
-          "fma_sensitive_lanes": whole_net["fma_sensitive_lanes"]})
+          "fma_sensitive_lanes": whole_net["fma_sensitive_lanes"],
+          "exact2_corner_lanes": whole_net["exact2_corner_lanes"]})
     if any(errs.values()):
         raise AssertionError(f"kernel differs from its plain version: {errs}")
 
@@ -633,8 +779,28 @@ def main() -> int:
     golden("sine", outs[0])
     if paths["colfc"] != {"colfc": 4}:
         raise AssertionError(f"colfc path launched {paths['colfc']}, expected 4 (4 requests)")
+    for backend, want in PD_PATHS.items():
+        m = compile_tflite(model_path("person_detect"), name="person_detect", backend=backend)
+        outs, paths[backend] = drive(m, pd_reqs)
+        goldens[f"person_detect/{backend}"] = golden("person_detect", outs[0])
+        if paths[backend] != want:
+            raise AssertionError(f"{backend} path launched {paths[backend]}, expected {want} "
+                                 "(4 requests)")
+        if backend != "packed":
+            for name in ("sine", "speech"):
+                m = compile_tflite(model_path(name), name=name, backend=backend)
+                goldens[f"{name}/{backend}"] = golden(name, m.predict(GOLDENS[name][0]))
+    m = compile_tflite(model_path("speech"), name="speech", backend="fused")
+    speech_reqs = [GOLDENS["speech"][0]] + [
+        rng.uniform(0, 1, (b, 1960)).astype(np.float32) for b in (1, 3, 16)]
+    outs, paths["fused/speech"] = drive(m, speech_reqs)
+    golden("speech", outs[0])
+    if paths["fused/speech"] != {"megakernel": 8}:
+        raise AssertionError(f"fused speech path launched {paths['fused/speech']}, expected 2 "
+                             "megakernel launches a forward (4 requests)")
     launches = {"qgemm": paths["pallas"]["qgemm"], "qdwconv": paths["pallas"]["qdwconv"],
-                "flatpack": paths["flat"]["flatpack"], "colfc": paths["colfc"]["colfc"]}
+                "flatpack": paths["flat"]["flatpack"], "colfc": paths["colfc"]["colfc"],
+                "megakernel": paths["fused"]["megakernel"], "packed": paths["packed"]["packed"]}
     emit({"phase": "main_path", "goldens_bit_exact": goldens, "launches_by_path": paths,
           "requests": 4})
 
@@ -644,7 +810,8 @@ def main() -> int:
         mx = compile_tflite(model_path(name), name=name, backend="xla")
         xq = random_input(mx, 1024, rng)
         yx = mx.predict_inner(xq)
-        for backend in ("flat", "pallas") + (("colfc",) if name == "sine" else ()):
+        extra = {"sine": ("colfc",), "person_detect": ("packed",)}.get(name, ())
+        for backend in ("flat", "pallas", "fused", "hybrid") + extra:
             yk = compile_tflite(model_path(name), name=name, backend=backend).predict_inner(xq)
             whole[f"{name}/{backend}"] = {"shape": list(yk.shape),
                                           "max_abs_err": max_abs_err(yk, yx)}
@@ -670,12 +837,23 @@ def main() -> int:
                 batch / ms * 1e3 for ms in v]} for b, v in runs.items()}
             del xq
             torch.cuda.empty_cache()
-    emit({"phase": "throughput", "order": "flat, pallas, pallas, flat", "device": smi,
-          "clocks_power": nvidia_smi("clocks.sm,power.draw,power.limit"), **thr})
+    del models
+    for backend in ("fused", "hybrid", "packed"):
+        mb = compile_tflite(model_path("person_detect"), name="person_detect", backend=backend)
+        xq = random_input(mb, 8192, rng)
+        ms = time_ms(lambda: mb.predict_inner(xq), 10, warmup=2)
+        thr[f"person_detect/8192/{backend}"] = {"ms_per_batch": ms,
+                                                "inferences_per_s": 8192 / ms * 1e3}
+        del xq
+    torch.cuda.empty_cache()
+    emit({"phase": "throughput", "order": "flat, pallas, pallas, flat; then fused, hybrid, packed",
+          "device": smi, "clocks_power": nvidia_smi("clocks.sm,power.draw,power.limit"), **thr})
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
 
     per_kernel = {**timing, "flatpack": timing_whole["flatpack_person_detect"],
-                  "colfc": timing_whole["colfc_sine"]}
+                  "colfc": timing_whole["colfc_sine"],
+                  "megakernel": timing_whole["megakernel_person_detect"],
+                  "packed": timing_whole["packed_person_detect"]}
     emit({"kernels": [
         {"name": k, "route": "cuda", **KERNEL_INFO[k], "launches": launches[k],
          "max_abs_err": max(errs[k], per_kernel[k]["max_abs_err"]), "ms": per_kernel[k]["ms"],

@@ -7,8 +7,10 @@ quantization parameters) are host values, and the trainable arrays
 (weights, C0 bias constants, FC's derived C2) are torch tensors on the
 model's device in ``CompiledModel.params``.  The per-op backends
 (``"xla"``, ``"pallas"``) compute from ``params``, which may be swapped; the
-whole-network backends (``"flat"``, ``"colfc"``) bake the weights into
-their kernel's plan at build and refuse a swap.
+whole-network backends (``"flat"``, ``"colfc"``, ``"fused"``, ``"hybrid"``,
+``"packed"``) bake the weights into their kernels' plans at build and
+refuse a swap (the JAX package re-plans ``fused``/``hybrid`` from
+``params`` on every call).
 
 The API mirrors the reference model struct:
 
@@ -40,8 +42,25 @@ Backends (the JAX package's names, so callers pass the same strings):
   on its accelerator), else ``"pallas"``; ``"xla"`` on the CPU.  A
   non-int8 graph on CUDA raises: it runs only where the caller asks for
   ``"xla"``.
-* ``"fused"``, ``"hybrid"``, ``"packed"`` -- not ported yet
-  (ROADMAP.md, queue B); they raise.
+* ``"fused"`` -- the JAX package's experimental megakernel
+  (``kernels/megakernel.py``): the graph split into segments at each
+  reshape and flattening FullyConnected, one launch of ``csrc/megakernel.cu``
+  per segment (person_detect: 1 a forward, layers 0-28; speech: 2; sine:
+  1), the trailing softmax as the plain op.  Fusable int8 graphs only.
+* ``"hybrid"`` -- ``"fused"`` from ``hybrid_split_index`` on (the first
+  layer whose input has at least 64 channels: person_detect 9, speech 0,
+  sine 3, i.e. no segment); the layers before it run as ``"pallas"`` on
+  CUDA (person_detect: 5 ``qdwconv`` and 4 ``qgemm`` launches a forward)
+  and as the plain ops on the CPU, as the JAX package runs them through XLA.
+* ``"packed"`` -- the JAX package's experimental packed pipeline
+  (``kernels/packed.py``): the depthwise/pointwise prefix in one launch of
+  ``csrc/packed.cu`` (person_detect layers 0-22), the tail as the flat
+  tail (on CUDA 2 ``qdwconv`` and 3 ``qgemm`` launches a forward, then the
+  plain pool, reshape and softmax).  A graph that does not pack (sine,
+  speech) raises ``ValueError``.
+
+``"auto"`` never picks ``"fused"``, ``"hybrid"`` or ``"packed"``, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -73,9 +92,7 @@ from .ir import (
     SoftmaxLayer,
 )
 
-BACKENDS = frozenset({"auto", "xla", "pallas", "flat", "colfc"})
-# The JAX package's other backends, still to port (ROADMAP.md queue B).
-UNPORTED_BACKENDS = frozenset({"fused", "hybrid", "packed"})
+BACKENDS = frozenset({"auto", "xla", "pallas", "flat", "colfc", "fused", "hybrid", "packed"})
 
 
 def resolve_device(device=None) -> torch.device:
@@ -328,16 +345,15 @@ def _check_int8(graph: Graph, backend: str) -> None:
 def select_backend(graph: Graph, backend: str, device_type: str):
     """The backend a model of ``graph`` runs on a device of type
     ``device_type`` (``"cuda"`` or ``"cpu"``) when ``backend`` is asked
-    for, and the flat plan when that is ``"flat"``: ``(backend, plan)``.
-    Raises for a backend that is unknown or not ported, or that cannot run
-    the graph.  Host work only."""
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported to torch yet; see ROADMAP.md "
-            f"(queue B). Ported: {sorted(BACKENDS)}")
+    for, and its plan: the flat plan for ``"flat"``, the packed plan for
+    ``"packed"``, the hybrid split index for ``"hybrid"``: ``(backend,
+    plan)``.  Raises for a backend that is unknown or that cannot run the
+    graph.  Host work only."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose one of {sorted(BACKENDS)}")
     from ..kernels.flatpack import plan_flat
+    from ..kernels.megakernel import fusable, hybrid_split_index
+    from ..kernels.packed import plan_packed
 
     plan = None
     if backend == "auto":
@@ -350,6 +366,14 @@ def select_backend(graph: Graph, backend: str, device_type: str):
         plan = plan_flat(graph)
         if plan is None:
             raise ValueError("graph is not flat-packable; use backend='xla'")
+    elif backend == "packed":
+        plan = plan_packed(graph)
+        if plan is None:
+            raise ValueError("graph is not packable; use backend='xla'")
+    elif backend in ("fused", "hybrid"):
+        if not fusable(graph):
+            raise ValueError("graph is not megakernel-fusable; use backend='xla'")
+        plan = hybrid_split_index(graph) if backend == "hybrid" else 0
     if backend != "xla":
         _check_int8(graph, backend)
     return backend, plan
@@ -369,7 +393,7 @@ class CompiledModel:
         self.graph = graph
         self.device = resolve_device(device)
         self.backend, plan = select_backend(graph, backend, self.device.type)
-        self._flat = self._colfc = None
+        self._flat = self._colfc = self._packed = self._fused_forward = None
         self.params = init_params(graph, self.device)
         per_op_layers = graph.layers if self.backend == "pallas" else []
         if self.backend == "flat":
@@ -377,6 +401,16 @@ class CompiledModel:
 
             self._flat = kernel_from_plan(plan, device=self.device)
             per_op_layers = graph.layers[self._flat[1]:]
+        elif self.backend == "packed":
+            from ..kernels.packed import PackedKernel
+
+            ops, n_layers, meta = plan
+            self._packed = PackedKernel(ops, self.device), n_layers, meta
+            per_op_layers = graph.layers[n_layers:]
+        elif self.backend in ("fused", "hybrid"):
+            from ..kernels.megakernel import FusedForward
+
+            self._fused_forward = FusedForward(graph, plan, self.params, self.device)
         elif self.backend == "colfc":
             from ..kernels.colfc import build_col_kernel
 
@@ -384,8 +418,8 @@ class CompiledModel:
             if self._colfc is None:
                 raise ValueError(
                     "graph is not a colfc-packable tiny-FC chain; use backend='xla'")
-        # the flat prefix's tail runs the per-op kernels on CUDA and the
-        # plain ops on the CPU
+        # the flat and packed prefixes' tails run the per-op kernels on CUDA
+        # and the plain ops on the CPU
         self._tail_backend = "pallas" if self.device.type == "cuda" else "xla"
         self._consts = {layer.index: layer_constants(layer, self.device)
                         for layer in per_op_layers}
@@ -396,7 +430,8 @@ class CompiledModel:
 
     @params.setter
     def params(self, params: dict) -> None:
-        if self._flat is not None or self._colfc is not None:
+        if any(k is not None for k in (self._flat, self._colfc, self._packed,
+                                       self._fused_forward)):
             raise ValueError(
                 f"backend {self.backend!r} bakes the weights into its kernel's plan at "
                 "build; swap params on backend 'xla' or 'pallas', or build from a graph "
@@ -406,6 +441,10 @@ class CompiledModel:
     def _forward(self, xq: torch.Tensor) -> torch.Tensor:
         if self._flat is not None:
             return self._flat_forward(xq)
+        if self._packed is not None:
+            return self._packed_forward(xq)
+        if self._fused_forward is not None:
+            return self._fused_forward(xq)
         if self._colfc is not None:
             col_fn, meta = self._colfc
             y = col_fn(xq.reshape(xq.shape[0], meta["k0"]))
@@ -419,6 +458,14 @@ class CompiledModel:
         flat_fn, n_layers, meta = self._flat
         b = xq.shape[0]
         x = flat_fn(xq.reshape(b, meta["in_lanes"])).reshape(b, *meta["out_shape"])
+        return self._tail(x, n_layers)
+
+    def _packed_forward(self, xq: torch.Tensor) -> torch.Tensor:
+        """The packed kernel on the prefix, then the tail layers."""
+        packed_fn, n_layers, _ = self._packed
+        return self._tail(packed_fn(xq.contiguous()), n_layers)
+
+    def _tail(self, x: torch.Tensor, n_layers: int) -> torch.Tensor:
         for layer in self.graph.layers[n_layers:]:
             x = apply_layer(layer, self.params, x, self._tail_backend,
                             self._consts.get(layer.index))

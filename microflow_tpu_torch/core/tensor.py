@@ -129,8 +129,8 @@ def extract_patches(x: torch.Tensor, geom: ViewGeometry, pad_value: int) -> torc
 
 def reshape_2d(x: torch.Tensor) -> torch.Tensor:
     """Tensor4D -> Tensor2D row-major NHWC flatten (reference ``From``
-    impl, ``src/tensor.rs:95-115``)."""
-    return x.reshape(x.shape[0], -1)
+    impl, ``src/tensor.rs:95-115``); any batch, 0 included."""
+    return x.reshape(x.shape[0], int(np.prod(x.shape[1:])))
 
 
 def reshape_4d(x: torch.Tensor, rows: int, cols: int, chans: int) -> torch.Tensor:

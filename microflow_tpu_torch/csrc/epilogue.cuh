@@ -1,5 +1,5 @@
 // Requantization epilogues shared by the whole-network kernels
-// (flatpack.cu, colfc.cu).  Built with -fmad=false; the multiply and the add
+// (flatpack.cu, colfc.cu, megakernel.cu, packed.cu).  Built with -fmad=false; the multiply and the add
 // are also spelled __fmul_rn/__fadd_rn, so y = bias0 + c1*f32(acc) rounds
 // twice, as in the reference, never as one fused multiply-add.
 //

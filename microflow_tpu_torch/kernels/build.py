@@ -42,6 +42,8 @@ SIGNATURES = {
                 [_P, _P, _P, _P, _P, _P] + [_I] * 10 + [_F, _F, _I, _P]),
     "flatpack": ("mf_flatpack", [_P, _P, _L, _P, _I, _I, _I, _I, _I, _P]),
     "colfc": ("mf_colfc", [_P, _P, _L, _P, _I, _I, _I, _I, _I, _P]),
+    "megakernel": ("mf_megakernel", [_P, _P, _L, _P, _I, _I, _I, _I, _I, _P]),
+    "packed": ("mf_packed", [_P, _P, _L, _P, _I, _I, _I, _I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -347,25 +347,35 @@ def _f32_bits(v: float) -> int:
     return int(np.array([v], np.float32).view(np.int32)[0])
 
 
-def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
-    """The plan as one byte buffer for the kernel: ``len(ops)`` descriptors
-    of ``NF`` int32 fields, then every op's constants, each 16-byte
-    aligned (offsets in bytes from the buffer's start).  Returns the
-    buffer and its shared-memory split."""
-    chunks, offset = [], len(ops) * NF * 4
-    desc = np.zeros((len(ops), NF), np.int32)
+class PlanBuffer:
+    """A kernel plan as one byte buffer: ``n_ops`` descriptors of ``nf``
+    int32 fields (``desc``), then each op's constants, each 16-byte
+    aligned; ``put`` returns a constant's offset in bytes from the buffer's
+    start.  The whole-network kernels (flatpack, megakernel, packed) read
+    their plans so."""
 
-    def put(arr) -> int:
-        nonlocal offset
+    def __init__(self, n_ops: int, nf: int):
+        self.desc = np.zeros((n_ops, nf), np.int32)
+        self.chunks = []
+        self.offset = n_ops * nf * 4
+
+    def put(self, arr) -> int:
         raw = np.ascontiguousarray(arr).view(np.uint8).reshape(-1)
-        at = offset
-        pad = (-raw.size) % 16
-        chunks.append(np.concatenate([raw, np.zeros(pad, np.uint8)]))
-        offset += raw.size + pad
+        at, pad = self.offset, (-raw.size) % 16
+        self.chunks.append(np.concatenate([raw, np.zeros(pad, np.uint8)]))
+        self.offset += raw.size + pad
         return at
 
-    for i, op in enumerate(ops):
-        f = desc[i]
+    def bytes(self) -> np.ndarray:
+        return np.concatenate([self.desc.view(np.uint8).reshape(-1)] + self.chunks)
+
+
+def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
+    """The plan as one ``PlanBuffer`` of ``NF``-field descriptors for the
+    kernel.  Returns the buffer and its shared-memory split."""
+    plan = PlanBuffer(len(ops), NF)
+    put = plan.put
+    for f, op in zip(plan.desc, ops):
         f[F_KIND] = KINDS[op.kind]
         shp_in = op.in_shape if len(op.in_shape) == 3 else (1, 1, op.lanes_in)
         shp_out = op.out_shape if len(op.out_shape) == 3 else (1, 1, op.lanes_out)
@@ -416,9 +426,8 @@ def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
             f[F_W] = put(op.weights.astype(np.int8))
         f[F_BIAS] = put(op.bias0.astype(np.float32))
         f[F_C1] = put(op.c1.astype(np.float32))
-    buf = np.concatenate([desc.view(np.uint8).reshape(-1)] + chunks)
     a, b = _smem_split([op.lanes_out for op in ops], ops[0].lanes_in)
-    return buf, {"smem_a": a, "smem_b": b}
+    return plan.bytes(), {"smem_a": a, "smem_b": b}
 
 
 def _dw_vec(op: FlatOp) -> bool:

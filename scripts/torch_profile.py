@@ -6,7 +6,9 @@ CUDA card (an H100).
 
 Runs ``predict_inner`` of ``microflow_tpu_torch`` (``--backend``: ``auto``,
 the default, is the flat whole-network kernel on CUDA; ``pallas`` the
-per-op kernels; ``xla`` the plain torch ops) under ``torch.profiler`` and
+per-op kernels; ``fused``, ``hybrid`` and ``packed`` the megakernel and
+packed-pipeline backends; ``xla`` the plain torch ops) under
+``torch.profiler`` and
 prints one JSON line:
 the wall time per forward, the device-busy share of it, device time per
 kernel name grouped into the port's kernels and PyTorch's own, and the
@@ -34,7 +36,8 @@ from microflow_tpu_torch.models import person_detect  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--backend", default="auto", help="auto, flat, pallas or xla")
+    ap.add_argument("--backend", default="auto",
+                    help="auto, flat, pallas, fused, hybrid, packed or xla")
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--trace", help="write the Chrome trace to this path")
@@ -63,7 +66,8 @@ def main() -> int:
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.device_time_total / 1e3
     per_fwd = {k: v / args.iters for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])}
     ours = {k: v for k, v in per_fwd.items()
-            if any(n in k for n in ("qgemm_kernel", "qdwconv_kernel", "flat_kernel"))}
+            if any(n in k for n in ("qgemm_kernel", "qdwconv_kernel", "flat_kernel",
+                                    "segment_kernel", "packed_kernel"))}
     device_ms = sum(per_fwd.values())
     ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     top_ops = [{"op": e.key, "device_ms_per_forward": e.self_device_time_total / 1e3 / args.iters,

@@ -11,6 +11,7 @@ of the three models.)  The case builders are shared with
 ``test_torch_kernels.py``.
 """
 
+import chip_smoke
 import numpy as np
 import pytest
 import torch
@@ -21,13 +22,17 @@ from microflow_tpu_torch.kernels import (
     LAUNCHES,
     build_col_kernel,
     build_flat_kernel,
+    build_fused_forward,
+    build_packed_kernel,
     colfc_reference,
     flat_forward_reference,
+    packed_reference,
     qdwconv,
     qdwconv_reference,
     qgemm,
     qgemm_reference,
 )
+from microflow_tpu_torch.kernels.megakernel import hybrid_split_index
 from microflow_tpu_torch.models import GOLDENS, model_path
 
 F32 = np.float32
@@ -127,6 +132,51 @@ def test_colfc_kernel_matches_plain(cuda, compute):
     assert torch.equal(got, colfc_reference(col_fn.plan, x.to(cuda)))
 
 
+def _graph(name):
+    if name == "conv_graph_wzp":
+        return chip_smoke.conv_graph(np.random.default_rng(0), wzp=True)
+    if name == "packed_graph":
+        return chip_smoke.packed_graph(np.random.default_rng(0))
+    return parse(model_path(name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,backend", [
+    ("person_detect", "fused"), ("person_detect", "hybrid"), ("speech", "fused"),
+    ("sine", "fused"), ("conv_graph_wzp", "fused")])
+def test_megakernel_matches_plain(cuda, name, backend):
+    g = _graph(name)
+    fwd = build_fused_forward(g, hybrid_split_index(g) if backend == "hybrid" else 0,
+                              device=cuda)
+    assert fwd.segments
+    rng = np.random.default_rng(len(g.layers))
+    for seg in fwd.segments:
+        for batch in (64, 3, 0):
+            x = torch.from_numpy(rng.integers(-128, 128, (batch, *seg.segment.in_shape),
+                                              dtype=np.int8)).to(cuda)
+            before = LAUNCHES["megakernel"]
+            got = seg(x)
+            assert LAUNCHES["megakernel"] == before + (batch > 0)
+            assert torch.equal(got, seg.reference(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,max_layers", [("person_detect", None), ("person_detect", 5),
+                                             ("person_detect", 9), ("person_detect", 15),
+                                             ("packed_graph", None)])
+def test_packed_kernel_matches_plain(cuda, name, max_layers):
+    packed_fn, n, meta = build_packed_kernel(_graph(name), max_layers=max_layers, device=cuda)
+    rng = np.random.default_rng(n)
+    for batch in (64, 3, 0):
+        x = torch.from_numpy(rng.integers(-128, 128, (batch, meta["in_rows"], meta["in_cols"], 1),
+                                          dtype=np.int8)).to(cuda)
+        before = LAUNCHES["packed"]
+        got = packed_fn(x)
+        assert LAUNCHES["packed"] == before + (batch > 0)
+        assert got.shape == (batch, meta["h_out"], meta["w_out"], meta["c_out"])
+        assert torch.equal(got, packed_reference(packed_fn.ops, x))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["sine", "speech", "person_detect"])
 def test_models_on_the_card(cuda, name):
@@ -141,6 +191,9 @@ def test_models_on_the_card(cuda, name):
     rng = np.random.default_rng(5)
     xq = torch.from_numpy(rng.integers(-128, 128, (64, *m.graph.input_shape), dtype=np.int8))
     want_q = plain.predict_inner(xq.to(cuda))
-    for backend in ("flat", "pallas") + (("colfc",) if name == "sine" else ()):
+    extra = {"sine": ("colfc",), "person_detect": ("packed",)}.get(name, ())
+    for backend in ("flat", "pallas", "fused", "hybrid") + extra:
         k = compile_tflite(model_path(name), backend=backend)
         assert torch.equal(k.predict_inner(xq.to(cuda)), want_q), backend
+        if backend in ("fused", "hybrid", "packed"):
+            assert np.array_equal(k.predict(x).cpu().numpy(), want), backend

@@ -16,6 +16,7 @@ import sys
 import microflow_tpu_torch
 import microflow_tpu_torch.compiler.builder, microflow_tpu_torch.kernels.build
 import microflow_tpu_torch.kernels.flatpack, microflow_tpu_torch.kernels.colfc
+import microflow_tpu_torch.kernels.megakernel, microflow_tpu_torch.kernels.packed
 import microflow_tpu_torch.models, microflow_tpu_torch.ops, microflow_tpu_torch.frontend
 import chip_smoke
 bad = sorted(m for m in sys.modules

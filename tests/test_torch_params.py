@@ -58,7 +58,9 @@ def test_params_from_numpy_perturbed(name, tmp_path):
     assert np.abs(after - np.asarray(xj).astype(np.int64)).max() <= 1
 
 
-@pytest.mark.parametrize("name,backend", [("speech", "flat"), ("sine", "colfc")])
+@pytest.mark.parametrize("name,backend", [("speech", "flat"), ("sine", "colfc"),
+                                          ("person_detect", "packed"), ("speech", "fused"),
+                                          ("sine", "hybrid")])
 def test_params_swap_refused_where_weights_are_baked(name, backend):
     """The whole-network kernels read the weights baked into their plan at
     build, so a model on those backends refuses new params rather than
@@ -74,15 +76,16 @@ def test_backend_names(tmp_path):
     path = model_path("sine")
     assert compile_tflite(path, device="cpu").backend == "xla"
     assert compile_tflite(path, backend="pallas", device="cpu").backend == "pallas"
-    for name in ("flat", "colfc"):
+    for name in ("flat", "colfc", "fused", "hybrid"):
         assert compile_tflite(path, backend=name, device="cpu").backend == name
-    for name in ("fused", "hybrid", "packed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compile_tflite(path, backend=name, device="cpu")
+    with pytest.raises(ValueError, match="not packable"):
+        compile_tflite(path, backend="packed", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         compile_tflite(path, backend="tpu", device="cpu")
     u8 = synth.write(str(tmp_path / "u8.tflite"), synth.uint8_mlp())
     with pytest.raises(ValueError, match="int8 graphs only"):
         compile_tflite(u8, backend="pallas", device="cpu")
+    with pytest.raises(ValueError, match="not megakernel-fusable"):
+        compile_tflite(u8, backend="fused", device="cpu")
     assert compile_tflite(u8, backend="xla", device="cpu").predict_inner(
         np.zeros((2, 16), np.uint8)).dtype == torch.uint8

@@ -19,12 +19,18 @@ is allowed besides the FMA set.
 
 from __future__ import annotations
 
+import dataclasses
+import enum
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from microflow_tpu.compiler import builder as jbuilder
+from microflow_tpu.compiler import ir as jir
+from microflow_tpu.core import activation as jactivation
+from microflow_tpu.core import tensor as jtensor
 from microflow_tpu.compiler.ir import (
     AveragePool2DLayer,
     Conv2DLayer,
@@ -226,3 +232,22 @@ def fma_sensitive(rng, count: int, c1=None):
         cs += c[hit].tolist()
     return (np.array(qs[:count], np.int64), np.array(bs[:count], F32),
             np.array(cs[:count], F32))
+
+
+_JAX_TYPES = {"QuantInfo": jir.QuantInfo, "ViewGeometry": jtensor.ViewGeometry,
+              "ViewPadding": jtensor.ViewPadding, "FusedActivation": jactivation.FusedActivation}
+
+
+def jax_graph(value):
+    """The JAX package's counterpart of a graph (or any IR value) of the
+    port: the same dataclass or enum by name, field for field, sharing the
+    numpy arrays."""
+    if isinstance(value, enum.Enum):
+        return _JAX_TYPES[type(value).__name__](value.value)
+    if dataclasses.is_dataclass(value):
+        cls = _JAX_TYPES.get(type(value).__name__) or getattr(jir, type(value).__name__)
+        return cls(**{f.name: jax_graph(getattr(value, f.name))
+                      for f in dataclasses.fields(value)})
+    if isinstance(value, list):
+        return [jax_graph(v) for v in value]
+    return value
