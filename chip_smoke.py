@@ -14,8 +14,11 @@ line; any failure raises and the script exits non-zero:
    ``qgemm``/``qdwconv`` at every layer shape of sine, speech and
    person_detect (batch 64) and on edge cases; ``flatpack`` on
    person_detect (whole, and its first 2 and 12 layers), speech and sine at
-   batches 64, 3 and 0, and on a small conv graph (and two prefixes) whose
-   ops take the kernel's general paths; ``colfc`` on sine in both compute
+   batches 64, 3 and 0, on a small conv graph (and two prefixes) whose
+   ops take the kernel's general paths, and on a graph of 1x1 convs at the
+   edges of its tensor-core path (``pw_edge_graph``; the phase prints how
+   many ops of each plan take ``mma.sync``: 13 of person_detect's, layers
+   2-26); every input holds -128 and 127; ``colfc`` on sine in both compute
    modes at batch 1000; ``megakernel`` on every segment of person_detect's
    ``fused`` and ``hybrid`` forwards, speech's and sine's ``fused``, the
    conv graph and its variant with a leading Quantize and nonzero weight
@@ -101,7 +104,7 @@ from microflow_tpu_torch.kernels import (
     flat_forward_reference,
     packed_reference,
 )
-from microflow_tpu_torch.kernels.flatpack import flat_bound
+from microflow_tpu_torch.kernels.flatpack import flat_bound, pw_mma
 from microflow_tpu_torch.kernels.megakernel import hybrid_split_index
 from microflow_tpu_torch.kernels.packed import packed_bound
 from microflow_tpu_torch.models import GOLDENS, model_path
@@ -435,6 +438,60 @@ def conv_graph(rng, wzp: bool = False) -> Graph:
                  output_shape=shape, output_q=in_q, output_dtype=np.dtype(np.int8))
 
 
+PW_EDGE = (("pw", 16, 1), ("pw", 8, 1), ("pw", 48, 2), ("pw", 20, 1), ("pw", 256, 1), ("dw", 5),
+           ("pw", 96, 1), ("pw", 256, 1), ("dw", 3), ("pw", 16, 1), ("pool", 7), ("pw", 48, 1),
+           ("pw", 256, 1))
+PW_EDGE_MMA = [0, 2, 4, 6, 7, 9, 11, 12]  # its layers on the flat kernel's tensor-core path
+
+
+def pw_edge_graph(rng) -> Graph:
+    """A chain of 1x1 convs of the port's IR at the edges of the flat
+    kernel's tensor-core path, int8 [25, 1, 4] in.  Its tensor-core convs
+    (layers ``PW_EDGE_MMA``), input -> output channels on so many output
+    pixels: 4 -> 16 on 25; 8 -> 48 with stride 2 (25 -> 13 rows); 20 ->
+    256 on 13; 256 -> 96 and 96 -> 256 on 9; 256 -> 16 on 7; 16 -> 48 and
+    48 -> 256 on 1.  5x1 and 3x1 VALID depthwise convs and a 7x1 pool
+    shrink the column, and 1x1 convs to 8 and 20 channels take the
+    ``__dp4a`` path in between.  Random weights, every filter holding -128
+    or 127, nonzero input zero points, every activation (RELU6 on every
+    third layer)."""
+    q = lambda: QuantInfo(np.array([rng.uniform(0.02, 0.1)], np.float32),
+                          np.array([rng.choice([-100, -37, -1, 1, 45, 99])], np.int64))
+    w_q = QuantInfo(np.ones(1, np.float32), np.zeros(1, np.int64))
+    layers, shape, in_q = [], (25, 1, 4), q()
+    input_q = in_q
+    for i, (kind, *spec) in enumerate(PW_EDGE):
+        out_q, act = q(), ACTS[i % 3]
+        h, w, c_in = shape
+        if kind == "pw":
+            c_out, s = spec
+            g = ViewGeometry(h, w, 1, 1, (h - 1) // s + 1, (w - 1) // s + 1, s, s,
+                             ViewPadding.VALID)
+            f = rng.integers(-128, 128, (c_out, 1, 1, c_in)).astype(np.int8)
+            f[0::2, 0, 0, 0], f[1::2, 0, 0, -1] = -128, 127
+            c1 = (rng.uniform(0.5, 1.5, c_out) * 40 / (np.sqrt(c_in) * 5476)).astype(np.float32)
+            layers.append(Conv2DLayer(i, f, in_q, w_q, w_q, out_q,
+                                      rng.normal(0, 20, c_out).astype(np.float32), c1, g, act,
+                                      (g.out_rows, g.out_cols, c_out)))
+        elif kind == "dw":
+            (k,) = spec
+            g = ViewGeometry(h, w, k, 1, h - k + 1, w, 1, 1, ViewPadding.VALID)
+            wd = rng.integers(-128, 128, (k, 1, c_in)).astype(np.int8)
+            layers.append(DepthwiseConv2DLayer(
+                i, wd, in_q, w_q, w_q, out_q, rng.normal(0, 20, c_in).astype(np.float32),
+                rng.uniform(1e-3, 5e-3, c_in).astype(np.float32), g, act,
+                (g.out_rows, g.out_cols, c_in)))
+        else:
+            (k,) = spec
+            g = ViewGeometry(h, w, k, 1, h - k + 1, w, 1, 1, ViewPadding.VALID)
+            layers.append(AveragePool2DLayer(i, in_q, out_q, np.float32(0.9), np.float32(3.0), g,
+                                             act, (g.out_rows, g.out_cols, c_in)))
+        shape, in_q = layers[-1].out_shape, out_q
+    return Graph(name="pw_edge_graph", layers=layers, input_shape=(25, 1, 4), input_q=input_q,
+                 input_dtype=np.dtype(np.int8), output_shape=shape, output_q=in_q,
+                 output_dtype=np.dtype(np.int8))
+
+
 def packed_graph(rng) -> Graph:
     """A small graph of the port's IR that the packed kernel takes whole:
     int8 [16, 32, 1] -> a 3x3/s2 stem to 16 channels, a 3x3 depthwise conv,
@@ -476,12 +533,15 @@ def whole_network_checks(dev, rng) -> dict:
     plain versions on the card: max |kernel - plain| per kernel and the
     number of checks."""
     errs = {"flatpack": [], "colfc": [], "megakernel": [], "packed": []}
+    mma_ops = {}
 
     def flat_check(g, label, batches, max_layers=None):
         flat_fn, _, meta = build_flat_kernel(g, max_layers=max_layers, device=dev)
+        mma_ops[label] = [op.layer_idx for op in flat_fn.ops if pw_mma(op)]
         for b in batches:
-            x = torch.from_numpy(
-                rng.integers(-128, 128, (b, meta["in_lanes"]), dtype=np.int8)).to(dev)
+            xn = rng.integers(-128, 128, (b, meta["in_lanes"]), dtype=np.int8)
+            xn.flat[:2] = (-128, 127)  # both int8 rails in every case
+            x = torch.from_numpy(xn).to(dev)
             errs["flatpack"].append({"case": f"{label} B{b}", "max_abs_err": max_abs_err(
                 flat_fn(x), flat_forward_reference(flat_fn.ops, x))})
 
@@ -519,6 +579,12 @@ def whole_network_checks(dev, rng) -> dict:
     cg = conv_graph(rng)
     for max_layers in (None, 5, 9):
         flat_check(cg, f"conv_graph[:{max_layers}]", (64, 3), max_layers)
+    flat_check(pw_edge_graph(rng), "pw_edge_graph", (64, 3, 0))
+    if mma_ops["person_detect[:None]"] != list(range(2, 27, 2)):
+        raise AssertionError(f"person_detect's tensor-core 1x1 convs: "
+                             f"{mma_ops['person_detect[:None]']}, expected layers 2-26")
+    if mma_ops["pw_edge_graph"] != PW_EDGE_MMA:
+        raise AssertionError(f"pw_edge_graph's tensor-core 1x1 convs: {mma_ops['pw_edge_graph']}")
     sine = parse(model_path("sine"))
     xs = torch.from_numpy(rng.integers(-128, 128, (1000, 1), dtype=np.int8)).to(dev)
     for compute in ("i32", "f32"):
@@ -547,7 +613,8 @@ def whole_network_checks(dev, rng) -> dict:
         corners[g.name] = exact2_corners(g, sweep)
     if not corners["edge_c1_one"]:
         raise AssertionError("no lane of edge_c1_one on the exact2 corner")
-    return {"checks": errs, "fma_sensitive_lanes": n_fma, "exact2_corner_lanes": corners}
+    return {"checks": errs, "fma_sensitive_lanes": n_fma, "exact2_corner_lanes": corners,
+            "mma_ops": {k: len(v) for k, v in mma_ops.items()}}
 
 
 # --- timing -------------------------------------------------------------------
@@ -717,7 +784,8 @@ def main() -> int:
           "whole_network_cases": {k: [c["case"] for c in v]
                                   for k, v in whole_net["checks"].items()},
           "fma_sensitive_lanes": whole_net["fma_sensitive_lanes"],
-          "exact2_corner_lanes": whole_net["exact2_corner_lanes"]})
+          "exact2_corner_lanes": whole_net["exact2_corner_lanes"],
+          "flatpack_mma_sync_ops": whole_net["mma_ops"]})
     if any(errs.values()):
         raise AssertionError(f"kernel differs from its plain version: {errs}")
 

@@ -16,14 +16,32 @@
 // ping-pong shared-memory buffers (each sized to the largest tensor of its
 // parity; 18,432 + 36,864 bytes for person_detect, so four blocks an SM),
 // with __syncthreads() between ops.  The only device-memory traffic is the
-// input row, the output row, and the plan (240 KB for person_detect),
+// input row, the output row, and the plan (244 KB for person_detect),
 // which stays in L2.
-// Threads stride over output elements with the channel fastest, so
-// neighbouring threads read neighbouring bytes.  Depthwise convs and 1x1
-// convs over a multiple of 4 channels use __dp4a, four output channels a
-// thread; the rest is scalar integer work on the CUDA cores.  No tensor
-// cores yet: the 1x1 convs do 86% of the multiply-adds, likely waiting on
-// their weight loads from L2, and an mma.sync path for them is later work.
+//
+// The 1x1 convs do 86% of the multiply-adds.  Those with a multiple of 16
+// output channels (all of person_detect's but the 2-channel head; the plan
+// marks them F_MMA) run on the int8 tensor cores: mma.sync m16n8k32, output
+// channels on M, pixels on N.  The plan holds the weights already in A
+// fragment order, so a lane loads its whole fragment with one 16-byte load
+// and a warp 512 contiguous bytes; B comes straight from the pixel rows in
+// shared memory, which are [pixel][channel], the "col" layout as they are.
+// Each weight fragment serves NT tiles of 8 pixels, so a block loads 414 KB
+// of weights a sample for person_detect's 1x1 convs, not one byte per
+// multiply-add (6.2 MB) as the __dp4a path does, whose L2 traffic bounded
+// them before (scripts/torch_flat_layers.py prints both per op).  Within
+// each 64 channels the K order is permuted (the same way in A at plan time
+// and in B here; an integer sum does not depend on it), so a lane reads 16
+// contiguous bytes of its pixel for two k-steps: one LDS.128 in place of
+// four 8-way conflicting 4-byte reads when IC >= 128.  What is left to pace
+// them is the epilogue's two conversions an output on the SM's 16-a-clock
+// conversion pipe, mma.sync's rate (well below the wgmma peak that the
+// bound assumes) and latency: 8 warps a block, 4 blocks an SM
+// (scripts/torch_flat_ablate.py times each part).  Depthwise convs and the
+// other 1x1 convs over a multiple of 4 channels use __dp4a, four output
+// channels a thread; threads stride over output elements with the channel
+// fastest, so neighbouring threads read neighbouring bytes; the rest is
+// scalar integer work on the CUDA cores.
 //
 // Every read stays in bounds: a tap outside the input is skipped, or reads
 // in_zp in place of the input (either way it adds (in_zp - in_zp) * w = 0,
@@ -35,10 +53,11 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int NT = 3;   // tiles of 8 pixels a warp's work item in op_pw_mma
 constexpr int NF = 32;  // int32 fields per op descriptor (kernels/flatpack.py)
 enum {
   F_KIND, F_IH, F_IW, F_IC, F_OH, F_OW, F_OC, F_KH, F_KW, F_SR, F_SC, F_PT, F_PL, F_ZP, F_LO,
-  F_HI, F_W, F_D, F_BIAS, F_C1, F_RECIP, F_S0, F_S1, F_OUTZP, F_EXACT, F_IN, F_OUT, F_VEC
+  F_HI, F_W, F_D, F_BIAS, F_C1, F_RECIP, F_S0, F_S1, F_OUTZP, F_EXACT, F_IN, F_OUT, F_VEC, F_MMA
 };
 enum { K_DW, K_CONV, K_PW, K_FC, K_POOL, K_SOFTMAX };
 
@@ -249,6 +268,147 @@ __device__ void op_pw(const Op& op, const int8_t* src, int8_t* dst) {
   }
 }
 
+// d += A (16x32 s8, row) x B (32x8 s8, col), s32 accumulators.  Lane l =
+// 4g + t holds a = {row g k 4t..4t+3, row g+8 k 4t.., row g k 16+4t..,
+// row g+8 k 16+4t..}, b = {k 4t..4t+3 of column g, k 16+4t.. of column g},
+// d = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const int4& a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// N words (4N channels from channel c) of the pixel row at src + off; a
+// word of channels >= ic, or of an absent pixel (off < 0), is 0 and not
+// read.  A row of a multiple of 4N channels is read with one vector load.
+template <int N>
+__device__ __forceinline__ void row_words(const int8_t* src, int off, int c, int ic,
+                                          uint32_t (&w)[N]) {
+  if (off >= 0 && ic % (4 * N) == 0 && c < ic) {
+    if constexpr (N == 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(src + off + c);
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(src + off + c);
+      w[0] = v.x, w[1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      w[i] = off >= 0 && c + 4 * i < ic ? *reinterpret_cast<const uint32_t*>(src + off + c + 4 * i)
+                                        : 0u;
+  }
+}
+
+// n / d for 0 <= n < 2^16 and 1 <= d <= 2^16 (a plan's tensors have at
+// most MAX_LANES = 2^16 elements, so op_pw_mma's pixel indices, widths and
+// work items stay below that) by a multiply, not a division on the
+// conversion pipe that the epilogues load: with M = ceil(2^32 / d) = hi * 2^32 + lo
+// (hi = 1 only for d = 1), (n * M) >> 32 is exactly n / d, since
+// M * d - 2^32 < d and n < 2^16 <= 2^32 / d.
+struct Div16 {
+  unsigned lo;
+  bool hi;
+  __device__ explicit Div16(int d) : lo(0xffffffffu / (unsigned)d + 1u), hi(d == 1) {}
+  __device__ int operator()(int n) const {
+    return (int)(__umulhi((unsigned)n, lo) + (hi ? (unsigned)n : 0u));
+  }
+};
+
+// op_pw_mma's epilogue, the rounding chosen once per item, not per
+// output: a lane's accumulators hold pixels p0 + 8j + i (i = 0, 1) of
+// output channels r0 (registers 0, 1) and r0 + 8 (registers 2, 3).
+template <bool kExact>
+__device__ __forceinline__ void store_tiles(const int (&acc)[NT][4], int8_t* dst, int p0, int np,
+                                            int oc, int r0, float b0g, float b0h, float c1g,
+                                            float c1h, float lo, float hi) {
+  const auto rnd = [&](float y) {
+    return kExact ? mf_round_away(y, lo, hi) : mf_exact2(y, lo, hi);
+  };
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int p = p0 + 8 * j + i;
+      if (p < np) {
+        dst[p * oc + r0] = rnd(mf_affine(b0g, c1g, acc[j][i]));
+        dst[p * oc + r0 + 8] = rnd(mf_affine(b0h, c1h, acc[j][2 + i]));
+      }
+    }
+  }
+}
+
+// 1x1 conv (any stride) with OC % 16 == 0 and IC % 4 == 0 on the tensor
+// cores: the raw int8 dot plus d[f] = -in_zp * colsum, as op_pw, then the
+// same epilogue, so the bits are op_pw's.  A warp's work item is one m-tile
+// of 16 output channels and NT tiles of 8 output pixels; items stride by
+// warp.  K goes in steps of 32 channels, each an "A unit" of the plan
+// ([OC/16][ceil(IC/32)][32 lanes][16 bytes]); while 33 or more channels
+// remain, two units cover 64 channels kb.., and lane t reads channels
+// kb+16t..kb+16t+15 of its pixel (b0, b1 of the first unit, then of the
+// second); else one unit covers the last <= 32 and lane t reads channels
+// kb+8t..kb+8t+7.  The plan puts the weights of the same channels in the
+// same lanes.  Every loop is warp-uniform, as mma.sync needs.
+__device__ void op_pw_mma(const Op& op, const int8_t* src, int8_t* dst) {
+  const int iw = op[F_IW], ic = op[F_IC];
+  const int ow = op[F_OW], oc = op[F_OC], np = op[F_OH] * ow;
+  const int sr = op[F_SR], sc = op[F_SC], exact = op[F_EXACT];
+  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int units = (ic + 31) >> 5;
+  const int chunks = (np + 8 * NT - 1) / (8 * NT);
+  const int4* frag = op.at<int4>(F_W) + lane;
+  const int* d = op.at<int>(F_D);
+  const float* b0 = op.at<float>(F_BIAS);
+  const float* c1 = op.at<float>(F_C1);
+  const Div16 by_chunks(chunks), by_ow(ow);
+  for (int item = threadIdx.x >> 5; item < (oc >> 4) * chunks; item += kThreads / 32) {
+    const int m = by_chunks(item), n0 = (item - m * chunks) * (8 * NT);
+    const int r0 = 16 * m + g;  // this lane's output channels: r0 and r0 + 8
+    int off[NT];  // input row offset of pixel n0 + 8j + g; -1 past the end
+    int acc[NT][4];
+    const int d0 = __ldg(d + r0), d1 = __ldg(d + r0 + 8);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int p = n0 + 8 * j + g, row = by_ow(p);
+      off[j] = p < np ? (row * sr * iw + (p - row * ow) * sc) * ic : -1;
+      acc[j][0] = acc[j][1] = d0;
+      acc[j][2] = acc[j][3] = d1;
+    }
+    // Every tile's B words are read before the MMAs, and the MMAs go tile
+    // after tile, so the reads overlap and so do the MMA chains.  A tile
+    // past the pixels reads zeros (off < 0) and its MMAs change nothing
+    // that is stored.
+    const int4* a = frag + m * units * 32;
+    for (int kb = 0; kb < ic; kb += 64) {
+      if (ic - kb > 32) {
+        const int4 a0 = __ldg(a), a1 = __ldg(a + 32);
+        a += 64;
+        uint32_t w[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) row_words<4>(src, off[j], kb + 16 * t, ic, w[j]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_s8(acc[j], a0, w[j][0], w[j][1]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_s8(acc[j], a1, w[j][2], w[j][3]);
+      } else {
+        const int4 a0 = __ldg(a);
+        a += 32;
+        uint32_t w[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) row_words<2>(src, off[j], kb + 8 * t, ic, w[j]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_s8(acc[j], a0, w[j][0], w[j][1]);
+      }
+    }
+    const float b0g = __ldg(b0 + r0), b0h = __ldg(b0 + r0 + 8);
+    const float c1g = __ldg(c1 + r0), c1h = __ldg(c1 + r0 + 8);
+    if (exact) store_tiles<true>(acc, dst, n0 + 2 * t, np, oc, r0, b0g, b0h, c1g, c1h, lo, hi);
+    else store_tiles<false>(acc, dst, n0 + 2 * t, np, oc, r0, b0g, b0h, c1g, c1h, lo, hi);
+  }
+}
+
 // FullyConnected: one warp an output, lanes over K, then a shuffle sum
 // (integer, so the order does not matter).  Weights are [N][K].
 __device__ void op_fc(const Op& op, const int8_t* src, int8_t* dst) {
@@ -342,7 +502,10 @@ __global__ void __launch_bounds__(kThreads, 4)
           else op_dw(op, src, dst);
           break;
         case K_CONV: op_conv(op, src, dst); break;
-        case K_PW: op_pw(op, src, dst); break;
+        case K_PW:
+          if (op[F_MMA]) op_pw_mma(op, src, dst);
+          else op_pw(op, src, dst);
+          break;
         case K_FC: op_fc(op, src, dst); break;
         case K_POOL: op_pool(op, src, dst); break;
         default: op_softmax(op, src, dst); break;

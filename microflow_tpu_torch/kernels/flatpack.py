@@ -77,8 +77,10 @@ REQUANT_MODES = ("exact2", "exact")
 KINDS = {"dw": 0, "conv": 1, "pw": 2, "fc": 3, "pool": 4, "softmax": 5}
 NF = 32  # int32 fields per op descriptor
 (F_KIND, F_IH, F_IW, F_IC, F_OH, F_OW, F_OC, F_KH, F_KW, F_SR, F_SC, F_PT, F_PL, F_ZP, F_LO, F_HI,
- F_W, F_D, F_BIAS, F_C1, F_RECIP, F_S0, F_S1, F_OUTZP, F_EXACT, F_IN, F_OUT, F_VEC) = range(28)
+ F_W, F_D, F_BIAS, F_C1, F_RECIP, F_S0, F_S1, F_OUTZP, F_EXACT, F_IN, F_OUT, F_VEC,
+ F_MMA) = range(29)
 THREADS = 256  # threads a block in csrc/flatpack.cu
+NT = 3  # tiles of 8 pixels a warp's work item in csrc/flatpack.cu's op_pw_mma
 
 
 @dataclass
@@ -399,12 +401,16 @@ def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
             f[F_RECIP] = put(op.recip.astype(np.float32))
             continue
         if op.kind == "pw":
-            # [C/4][F] words: word (k, f) packs input channels 4k..4k+3 of
-            # filter f, so neighbouring threads read neighbouring words;
             # every tap of a 1x1 window is in bounds, so d is per filter
             fm, c = op.weights.shape[0], op.weights.shape[3]
-            w = op.weights.reshape(fm, c // 4, 4).transpose(1, 0, 2)
-            f[F_W] = put(np.ascontiguousarray(w).view(np.int32).reshape(c // 4, fm))
+            if pw_mma(op):
+                f[F_MMA] = 1
+                f[F_W] = put(mma_fragments(op.weights.reshape(fm, c)))
+            else:
+                # [C/4][F] words: word (k, f) packs input channels 4k..4k+3
+                # of filter f, so neighbouring threads read neighbouring words
+                w = op.weights.reshape(fm, c // 4, 4).transpose(1, 0, 2)
+                f[F_W] = put(np.ascontiguousarray(w).view(np.int32).reshape(c // 4, fm))
             f[F_D] = put((-op.in_zp * op.weights.reshape(fm, c).astype(np.int64).sum(1))
                          .astype(np.int32))
         elif op.kind == "fc":
@@ -436,6 +442,37 @@ def _dw_vec(op: FlatOp) -> bool:
     of 1 channel."""
     c = op.out_shape[2]
     return c % 4 == 0 and op.in_shape[2] in (1, c) and THREADS % (c // 4) == 0
+
+
+def pw_mma(op: FlatOp) -> bool:
+    """Whether the kernel takes a 1x1 conv on the tensor cores
+    (``mma.sync`` m16n8k32): a multiple of 16 output channels (the "pw"
+    kind already has a multiple of 4 input channels).  A rule on shape,
+    fixed in the plan."""
+    return op.kind == "pw" and op.out_shape[2] % 16 == 0
+
+
+def mma_fragments(w: np.ndarray) -> np.ndarray:
+    """int8 weights ``[OC, IC]`` as the kernel's A fragments, int8
+    ``[OC/16][ceil(IC/32)][32 lanes][16]``, one A unit (k-step of 32
+    channels) after another.  While more than 32 channels remain from
+    ``kb``, two units cover ``kb..kb+63``, lane t holding channels
+    ``c = kb+16t`` .. ``c+7`` in the first and the next 8 in the second (so
+    the kernel reads 16 contiguous bytes of a pixel for both); else one
+    unit covers the rest, lane t holding ``c = kb+8t`` .. ``c+7``.  Lane
+    4g + t of m-tile m holds row 16m+g channels c..c+3, row 16m+g+8
+    c..c+3, row 16m+g c+4..c+7, row 16m+g+8 c+4..c+7 (a0..a3); channels
+    >= IC are 0."""
+    oc, ic = w.shape
+    units = []  # (channel of lane 0, step between lanes)
+    for kb in range(0, ic, 64):
+        units += [(kb, 16), (kb + 8, 16)] if ic - kb > 32 else [(kb, 8)]
+    first = np.array([[kb + step * t for t in range(4)] for kb, step in units])  # [U, 4]
+    wp = np.zeros((oc, ic + 64), np.int8)
+    wp[:, :ic] = w
+    v = wp[:, first[:, :, None] + np.arange(8)]  # [OC, U, t, 8]
+    v = v.reshape(oc // 16, 2, 8, len(units), 4, 2, 4)  # [m, row half, g, U, t, c half, 4]
+    return np.ascontiguousarray(v.transpose(0, 3, 2, 4, 5, 1, 6)).reshape(-1)
 
 
 def flat_bound(ops: list, batch: int) -> tuple[int, int]:

@@ -11,7 +11,10 @@ Builds the kernel of every prefix of the model's plan (``--kernel flat``:
 ``megakernel``: the first k layers of the first segment of the ``fused``
 forward; ``packed``: the first k ops of the packed plan), times each with
 CUDA events on the same input, and prints one JSON line: per op its layer,
-kind, output shape, multiply-adds per sample, and its marginal time (the
+kind, output shape, multiply-adds per sample, (``--kernel flat``) the
+weight bytes a block loads per sample for a 1x1 conv (the tensor-core
+path: its m-tile's A fragments once per work item of ``NT`` pixel tiles;
+``op_pw``: one byte per multiply-add), and its marginal time (the
 prefix ending at it minus the prefix before; the flat kernel's first two
 ops are timed together, since a flat plan needs two).  A prefix also
 writes its last tensor to device memory, so a marginal time includes the
@@ -38,6 +41,7 @@ from microflow_tpu_torch.kernels import (  # noqa: E402
     build_fused_forward,
     build_packed_kernel,
 )
+from microflow_tpu_torch.kernels import flatpack  # noqa: E402
 from microflow_tpu_torch.kernels.megakernel import (  # noqa: E402
     Segment,
     SegmentKernel,
@@ -46,6 +50,18 @@ from microflow_tpu_torch.kernels.megakernel import (  # noqa: E402
 )
 from microflow_tpu_torch.kernels.packed import PackedKernel  # noqa: E402
 from microflow_tpu_torch.models import model_path  # noqa: E402
+
+
+def weight_bytes(op) -> int | None:
+    """Weight bytes a block of the flat kernel loads per sample for a 1x1
+    conv; None for other ops."""
+    if op.kind != "pw":
+        return None
+    if not flatpack.pw_mma(op):
+        return op.macs()
+    (oh, ow, oc), ic = op.out_shape, op.in_shape[2]
+    chunks = -(-oh * ow // (8 * flatpack.NT))
+    return chunks * oc * -(-ic // 32) * 32
 
 
 def plan_prefixes(kernel: str, g):
@@ -94,6 +110,10 @@ def main() -> int:
         print("torch_flat_layers: CUDA is not available", file=sys.stderr)
         return 1
     ops, first, make, in_shape = plan_prefixes(args.kernel, parse(model_path(args.model)))
+    wbytes = {}
+    if args.kernel == "flat":
+        full, _, _ = build_flat_kernel(parse(model_path(args.model)), device="cpu")
+        wbytes = {o.layer_idx: weight_bytes(o) for o in full.ops}
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.integers(-128, 128, (args.batch, *in_shape), dtype=np.int8)).cuda()
     rows, prev = [], 0.0
@@ -104,6 +124,7 @@ def main() -> int:
         rows.append({"layers": [o[0] for o in joined], "kinds": [o[1] for o in joined],
                      "out_shape": list(ops[k - 1][2]),
                      "macs_per_sample": sum(o[3] for o in joined),
+                     "weight_bytes_per_sample": wbytes.get(ops[k - 1][0]),
                      "marginal_ms": ms - prev, "prefix_ms": ms})
         prev = ms
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -112,8 +133,10 @@ def main() -> int:
     for r in rows:
         key = "+".join(sorted(set(r["kinds"])))
         by_kind[key] = by_kind.get(key, 0.0) + r["marginal_ms"]
+    pw_bytes = [b for b in wbytes.values() if b is not None]
     print(json.dumps({"kernel": args.kernel, "model": args.model, "batch": args.batch,
                       "device": smi, "n_ops": len(ops), "whole_ms": prev,
+                      "pw_weight_bytes_per_sample": sum(pw_bytes) if pw_bytes else None,
                       "marginal_ms_by_kind": by_kind, "ops": rows}))
     return 0
 

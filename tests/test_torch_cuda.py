@@ -106,13 +106,18 @@ def test_qdwconv_kernel_matches_plain(cuda, B, H, W, C, kh, kw, sr, sc):
 @pytest.mark.parametrize("name,max_layers,requant", [
     ("sine", None, "exact2"), ("speech", None, "exact2"), ("speech", None, "exact"),
     ("person_detect", None, "exact2"), ("person_detect", 2, "exact2"),
-    ("person_detect", 12, "exact")])
+    ("person_detect", 12, "exact"), ("pw_edge_graph", None, "exact2"),
+    ("pw_edge_graph", None, "exact")])
 def test_flat_kernel_matches_plain(cuda, name, max_layers, requant):
-    g = parse(model_path(name))
+    """The pw edge graph's 1x1 convs cover the edges of the tensor-core
+    path (``chip_smoke.pw_edge_graph``)."""
+    g = _graph(name)
     flat_fn, n, meta = build_flat_kernel(g, max_layers=max_layers, requant=requant, device=cuda)
     rng = np.random.default_rng(n)
     for batch in (64, 3, 0):
-        x = torch.from_numpy(rng.integers(-128, 128, (batch, meta["in_lanes"]), dtype=np.int8))
+        xn = rng.integers(-128, 128, (batch, meta["in_lanes"]), dtype=np.int8)
+        xn.flat[:2] = (-128, 127)
+        x = torch.from_numpy(xn)
         before = LAUNCHES["flatpack"]
         got = flat_fn(x.to(cuda))
         assert LAUNCHES["flatpack"] == before + (batch > 0)
@@ -137,6 +142,8 @@ def _graph(name):
         return chip_smoke.conv_graph(np.random.default_rng(0), wzp=True)
     if name == "packed_graph":
         return chip_smoke.packed_graph(np.random.default_rng(0))
+    if name == "pw_edge_graph":
+        return chip_smoke.pw_edge_graph(np.random.default_rng(0))
     return parse(model_path(name))
 
 

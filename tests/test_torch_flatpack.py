@@ -123,6 +123,30 @@ def test_exact2_epilogue_corner_and_fma_triples():
     assert np.array_equal(got, sep) and not np.array_equal(got, fma)
 
 
+def _unpack_mma_fragments(raw: np.ndarray, oc: int, ic: int) -> np.ndarray:
+    """int8 [OC, IC] from the A fragments of a tensor-core 1x1 conv:
+    [OC/16][ceil(IC/32)][32 lanes][16 bytes]; while more than 32 channels
+    remain from kb, two units hold channels kb + 16t + (0 | 8) .. +7 in
+    lane 4g + t, else one unit holds kb + 8t .. +7; the 16 bytes are rows
+    g, g+8 of the first 4 channels, then rows g, g+8 of the next 4."""
+    starts = []
+    for kb in range(0, ic, 64):
+        starts += [(kb, 16), (kb + 8, 16)] if ic - kb > 32 else [(kb, 8)]
+    frag = raw[:oc * len(starts) * 32].view(np.int8).reshape(oc // 16, len(starts), 32, 16)
+    w = np.zeros((oc, ic + 64), np.int8)
+    hits = np.zeros(w.shape, np.int64)
+    for m in range(oc // 16):
+        for u, (kb, step) in enumerate(starts):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                c = kb + step * t
+                for part, (r, c0) in enumerate(((g, c), (g + 8, c), (g, c + 4), (g + 8, c + 4))):
+                    w[16 * m + r, c0:c0 + 4] = frag[m, u, lane, 4 * part:4 * part + 4]
+                    hits[16 * m + r, c0:c0 + 4] += 1
+    assert (hits[:, :ic] == 1).all() and not w[:, ic:].any()
+    return w[:, :ic]
+
+
 def test_device_plan_layout():
     """The kernel's buffer for person_detect: one descriptor per op, each
     op's constants 16-byte aligned inside the buffer, the ping-pong split
@@ -148,8 +172,12 @@ def test_device_plan_layout():
             assert np.array_equal(d, -op.in_zp * op.weights.reshape(-1, c).astype(np.int32).sum(0))
         if op.kind == "pw":
             fm, c = op.weights.shape[0], op.weights.shape[3]
-            words = buf[row[tflat.F_W]:row[tflat.F_W] + fm * c].view(np.int32).reshape(c // 4, fm)
-            unpacked = words.view(np.int8).reshape(c // 4, fm, 4).transpose(1, 0, 2)
+            assert row[tflat.F_MMA] == (fm % 16 == 0)  # layers 2-26, not the head
+            if row[tflat.F_MMA]:
+                unpacked = _unpack_mma_fragments(buf[row[tflat.F_W]:], fm, c)
+            else:
+                words = buf[row[tflat.F_W]:row[tflat.F_W] + fm * c].view(np.int32)
+                unpacked = words.view(np.int8).reshape(c // 4, fm, 4).transpose(1, 0, 2)
             assert np.array_equal(unpacked.reshape(fm, 1, 1, c), op.weights)
             d = buf[row[tflat.F_D]:row[tflat.F_D] + 4 * fm].view(np.int32)
             assert np.array_equal(d, -op.in_zp * op.weights.reshape(fm, c).astype(np.int32).sum(1))
