@@ -15,10 +15,13 @@ line; any failure raises and the script exits non-zero:
    person_detect (batch 64) and on edge cases; ``flatpack`` on
    person_detect (whole, and its first 2 and 12 layers), speech and sine at
    batches 64, 3 and 0, on a small conv graph (and two prefixes) whose
-   ops take the kernel's general paths, and on a graph of 1x1 convs at the
+   ops take the kernel's general paths, on a graph of 1x1 convs at the
    edges of its tensor-core path (``pw_edge_graph``; the phase prints how
    many ops of each plan take ``mma.sync``: 13 of person_detect's, layers
-   2-26); every input holds -128 and 127; ``colfc`` on sine in both compute
+   2-26) and on a graph of 3x3 depthwise convs at the edges of its 3x3
+   depthwise path (``dw_edge_graph``; the phase prints how many ops of each
+   plan take that path: all 14 of person_detect's depthwise ops); every
+   input holds -128 and 127; ``colfc`` on sine in both compute
    modes at batch 1000; ``megakernel`` on every segment of person_detect's
    ``fused`` and ``hybrid`` forwards, speech's and sine's ``fused``, the
    conv graph and its variant with a leading Quantize and nonzero weight
@@ -31,7 +34,9 @@ line; any failure raises and the script exits non-zero:
    multiply-add triples that an FMA would round otherwise.  Then each is
    timed beside its plain version and its bound: the per-op kernels at
    person_detect's shapes at batch 8192 (``qgemm`` also beside
-   ``torch._int_mm``), ``flatpack`` on person_detect and speech at batch
+   ``torch._int_mm``, ``qdwconv`` beside cuDNN's depthwise ``conv2d`` in
+   f32 with TF32 off, first checked equal to the integer accumulators),
+   ``flatpack`` on person_detect and speech at batch
    8192, ``colfc`` on sine at batch 1,048,576, ``megakernel`` (person_detect's
    fused segment) and ``packed`` (its prefix) at batch 8192.
 4. main paths, each driven with the launch counts set to 0 just before it
@@ -104,10 +109,18 @@ from microflow_tpu_torch.kernels import (
     flat_forward_reference,
     packed_reference,
 )
-from microflow_tpu_torch.kernels.flatpack import flat_bound, pw_mma
+from microflow_tpu_torch.kernels.flatpack import (
+    DW3_S1,
+    DW3_S2,
+    DW3_STEM,
+    dw3_path,
+    flat_bound,
+    pw_mma,
+)
 from microflow_tpu_torch.kernels.megakernel import hybrid_split_index
 from microflow_tpu_torch.kernels.packed import packed_bound
 from microflow_tpu_torch.models import GOLDENS, model_path
+from microflow_tpu_torch.ops.depthwise_conv_2d import window_sum
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # int8 tensor-core operations/s.
@@ -359,7 +372,7 @@ def conv_graph(rng, wzp: bool = False) -> Graph:
     reach: a depth-multiplier stem to 6 channels, a 3x3/s2 Conv2D over 6
     channels, depthwise convs over 5 channels, a 1x1 conv over 5 channels
     and one to 6 outputs, a padded 2x2 pool, FC and softmax over 7; also a
-    depthwise and a 1x1 conv on the ``__dp4a`` paths.  With ``wzp`` (the
+    depthwise conv on the 3x3 path and a 1x1 conv on ``__dp4a``.  With ``wzp`` (the
     megakernel's variant): a leading int8 QuantizeLayer, and nonzero
     per-channel weight zero points on the 3x3/s2 conv, the 3x3 depthwise
     conv after it and the 1x1 conv to 12, and a nonzero one on the FC."""
@@ -492,6 +505,60 @@ def pw_edge_graph(rng) -> Graph:
                  output_dtype=np.dtype(np.int8))
 
 
+DW_EDGE = (("dw", 2, "SAME", 8), ("dw", 1, "SAME", 8), ("dw", 2, "SAME", 8), ("pw", 4),
+           ("dw", 1, "VALID", 4), ("dw", 2, "VALID", 4), ("pw", 256), ("dw", 1, "SAME", 256),
+           ("dw", 2, "SAME", 256), ("dw", 1, "VALID", 256))
+DW_EDGE_ZP = (45, -128, 99, -128, 17, -128, 3, -128, 60, -128, 11)  # input zero point of each layer
+# the path of each of its depthwise layers in the flat kernel: all take the 3x3 path
+DW_EDGE_DW3 = {0: DW3_STEM, 1: DW3_S1, 2: DW3_S2, 4: DW3_S1, 5: DW3_S2, 7: DW3_S1, 8: DW3_S2,
+               9: DW3_S1}
+
+
+def dw_edge_graph(rng) -> Graph:
+    """A chain of 3x3 depthwise convs of the port's IR at the edges of the
+    flat kernel's 3x3 path, int8 [61, 52, 1] in: the IC = 1 stride-2 stem
+    to 8 channels (26 output columns, a partial strip of 4), then at 8
+    channels SAME stride 1 and stride 2 (26 -> 13 columns), a 1x1 conv to 4,
+    VALID stride 1 (13 -> 11) and VALID stride 2 on the odd width (-> 5), a
+    1x1 conv to 256, SAME stride 1, SAME stride 2 on the odd width (-> 3)
+    and VALID stride 1 (-> 1x1).  Widths that are not a multiple of the
+    strip of 3, input zero points of -128 and of positive values
+    (``DW_EDGE_ZP``), random weights holding -128 and 127, every activation
+    (RELU6 on every third layer)."""
+    q = lambda zp: QuantInfo(np.array([rng.uniform(0.02, 0.1)], np.float32),
+                             np.array([zp], np.int64))
+    w_q = QuantInfo(np.ones(1, np.float32), np.zeros(1, np.int64))
+    layers, shape, in_q = [], (61, 52, 1), q(DW_EDGE_ZP[0])
+    input_q = in_q
+    for i, (kind, *spec) in enumerate(DW_EDGE):
+        out_q, act = q(DW_EDGE_ZP[i + 1]), ACTS[i % 3]
+        h, w, c_in = shape
+        c0 = rng.normal(0, 20, spec[-1]).astype(np.float32)
+        if kind == "pw":
+            (c_out,) = spec
+            g = ViewGeometry(h, w, 1, 1, h, w, 1, 1, ViewPadding.VALID)
+            f = rng.integers(-128, 128, (c_out, 1, 1, c_in)).astype(np.int8)
+            c1 = (rng.uniform(0.5, 1.5, c_out) * 40 / (np.sqrt(c_in) * 5476)).astype(np.float32)
+            layers.append(Conv2DLayer(i, f, in_q, w_q, w_q, out_q, c0, c1, g, act,
+                                      (h, w, c_out)))
+        else:
+            s, pad, c_out = spec
+            if pad == "SAME":
+                g = ViewGeometry(h, w, 3, 3, -(-h // s), -(-w // s), s, s, ViewPadding.SAME)
+            else:
+                g = ViewGeometry(h, w, 3, 3, (h - 3) // s + 1, (w - 3) // s + 1, s, s,
+                                 ViewPadding.VALID)
+            wd = rng.integers(-128, 128, (3, 3, c_out)).astype(np.int8)
+            wd[0, 0, 0::2], wd[2, 2, 1::2] = -128, 127
+            layers.append(DepthwiseConv2DLayer(
+                i, wd, in_q, w_q, w_q, out_q, c0, rng.uniform(1e-3, 5e-3, c_out).astype(np.float32),
+                g, act, (g.out_rows, g.out_cols, c_out)))
+        shape, in_q = layers[-1].out_shape, out_q
+    return Graph(name="dw_edge_graph", layers=layers, input_shape=(61, 52, 1), input_q=input_q,
+                 input_dtype=np.dtype(np.int8), output_shape=shape, output_q=in_q,
+                 output_dtype=np.dtype(np.int8))
+
+
 def packed_graph(rng) -> Graph:
     """A small graph of the port's IR that the packed kernel takes whole:
     int8 [16, 32, 1] -> a 3x3/s2 stem to 16 channels, a 3x3 depthwise conv,
@@ -533,11 +600,12 @@ def whole_network_checks(dev, rng) -> dict:
     plain versions on the card: max |kernel - plain| per kernel and the
     number of checks."""
     errs = {"flatpack": [], "colfc": [], "megakernel": [], "packed": []}
-    mma_ops = {}
+    mma_ops, dw3_ops = {}, {}
 
     def flat_check(g, label, batches, max_layers=None):
         flat_fn, _, meta = build_flat_kernel(g, max_layers=max_layers, device=dev)
         mma_ops[label] = [op.layer_idx for op in flat_fn.ops if pw_mma(op)]
+        dw3_ops[label] = {op.layer_idx: dw3_path(op) for op in flat_fn.ops if dw3_path(op)}
         for b in batches:
             xn = rng.integers(-128, 128, (b, meta["in_lanes"]), dtype=np.int8)
             xn.flat[:2] = (-128, 127)  # both int8 rails in every case
@@ -580,11 +648,18 @@ def whole_network_checks(dev, rng) -> dict:
     for max_layers in (None, 5, 9):
         flat_check(cg, f"conv_graph[:{max_layers}]", (64, 3), max_layers)
     flat_check(pw_edge_graph(rng), "pw_edge_graph", (64, 3, 0))
+    flat_check(dw_edge_graph(rng), "dw_edge_graph", (64, 3, 0))
     if mma_ops["person_detect[:None]"] != list(range(2, 27, 2)):
         raise AssertionError(f"person_detect's tensor-core 1x1 convs: "
                              f"{mma_ops['person_detect[:None]']}, expected layers 2-26")
     if mma_ops["pw_edge_graph"] != PW_EDGE_MMA:
         raise AssertionError(f"pw_edge_graph's tensor-core 1x1 convs: {mma_ops['pw_edge_graph']}")
+    pd_dw = [i for i, layer in enumerate(pd.layers) if isinstance(layer, DepthwiseConv2DLayer)]
+    if list(dw3_ops["person_detect[:None]"]) != pd_dw or len(pd_dw) != 14:
+        raise AssertionError(f"person_detect's depthwise ops on the 3x3 path: "
+                             f"{dw3_ops['person_detect[:None]']}, expected all 14: {pd_dw}")
+    if dw3_ops["dw_edge_graph"] != DW_EDGE_DW3:
+        raise AssertionError(f"dw_edge_graph's 3x3 depthwise ops: {dw3_ops['dw_edge_graph']}")
     sine = parse(model_path("sine"))
     xs = torch.from_numpy(rng.integers(-128, 128, (1000, 1), dtype=np.int8)).to(dev)
     for compute in ("i32", "f32"):
@@ -614,7 +689,8 @@ def whole_network_checks(dev, rng) -> dict:
     if not corners["edge_c1_one"]:
         raise AssertionError("no lane of edge_c1_one on the exact2 corner")
     return {"checks": errs, "fma_sensitive_lanes": n_fma, "exact2_corner_lanes": corners,
-            "mma_ops": {k: len(v) for k, v in mma_ops.items()}}
+            "mma_ops": {k: len(v) for k, v in mma_ops.items()},
+            "dw3_ops": {k: len(v) for k, v in dw3_ops.items()}}
 
 
 # --- timing -------------------------------------------------------------------
@@ -659,8 +735,34 @@ def int_mm_call(args):
     return lambda: torch._int_mm(x, w)
 
 
+def dw_conv_call(args, kw):
+    """cuDNN's depthwise convolution (``conv2d`` with ``groups=C``, f32,
+    TF32 off) on the same padded input and centred weights, made f32 and
+    NCHW (channels-last in memory) outside the timed call.  Returns the
+    call and its output as int32 NHWC: the accumulators without ``d``,
+    exact since every partial sum is an integer below 9 * 128 * 255 < 2**24."""
+    xp, wc = args[0], args[1]
+    c = xp.shape[3]
+    x = xp.permute(0, 3, 1, 2).to(torch.float32)
+    w = wc.permute(2, 0, 1).unsqueeze(1).to(torch.float32).contiguous()  # [C, 1, KH, KW]
+    fn = lambda: torch.nn.functional.conv2d(x, w, stride=(kw["sr"], kw["sc"]), groups=c)
+    acc = fn()[:, :, :kw["oh"], :kw["ow"]].permute(0, 2, 3, 1).to(torch.int32)
+    return fn, acc
+
+
+def dw_accumulators(args, kw) -> torch.Tensor:
+    """The plain version's int32 accumulators of a ``qdwconv`` call, without
+    ``d``."""
+    xp, wc = args[0], args[1]
+    geom = ViewGeometry(xp.shape[1], xp.shape[2], kw["kh"], kw["kw"], kw["oh"], kw["ow"],
+                        kw["sr"], kw["sc"], ViewPadding.VALID)
+    return window_sum(xp, wc.to(torch.int32), geom)
+
+
 def time_kernels(calls) -> dict:
-    """Per-call times at the captured shapes; sums per kernel."""
+    """Per-call times at the captured shapes; sums per kernel.  The library
+    yardsticks: ``torch._int_mm`` for ``qgemm``, and for ``qdwconv`` cuDNN's
+    depthwise ``conv2d``, first checked equal to the integer accumulators."""
     res = {}
     for name, lst in calls.items():
         rows = []
@@ -677,16 +779,27 @@ def time_kernels(calls) -> dict:
                    "library_ms": None}
             if name == "qgemm":
                 row["library_ms"] = time_ms(int_mm_call(args), 20)
+            else:
+                lib, acc = dw_conv_call(args, kw)
+                row["library_max_abs_err"] = int(
+                    (acc - dw_accumulators(args, kw)).abs().max().item()) if acc.numel() else 0
+                del acc
+                row["library_ms"] = time_ms(lib, 20)
             rows.append(row)
         tot = lambda key: sum(r[key] for r in rows)
         res[name] = {
             "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
             "bound_by": "bytes" if sum(r["bound_by"] == "bytes" for r in rows) * 2 >= len(rows)
             else "operations",
-            "library_ms": tot("library_ms") if name == "qgemm" else None,
+            "library_ms": tot("library_ms"),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "launches_per_forward": len(rows), "per_call": rows,
         }
+        if name == "qdwconv":
+            res[name]["library_max_abs_err"] = max(r["library_max_abs_err"] for r in rows)
+            if res[name]["library_max_abs_err"]:
+                raise AssertionError("cuDNN's depthwise conv2d differs from the integer "
+                                     f"accumulators: {res[name]['library_max_abs_err']}")
     return res
 
 
@@ -785,13 +898,15 @@ def main() -> int:
                                   for k, v in whole_net["checks"].items()},
           "fma_sensitive_lanes": whole_net["fma_sensitive_lanes"],
           "exact2_corner_lanes": whole_net["exact2_corner_lanes"],
-          "flatpack_mma_sync_ops": whole_net["mma_ops"]})
+          "flatpack_mma_sync_ops": whole_net["mma_ops"],
+          "flatpack_3x3_depthwise_ops": whole_net["dw3_ops"]})
     if any(errs.values()):
         raise AssertionError(f"kernel differs from its plain version: {errs}")
 
     pd = compile_tflite(model_path("person_detect"), name="person_detect", backend="pallas")
     with Recorder("capture") as rec:
         pd.predict_inner(random_input(pd, 8192, rng))
+    torch.backends.cudnn.allow_tf32 = False  # the depthwise yardstick in exact f32
     timing = time_kernels(rec.calls)
     del rec
     torch.cuda.empty_cache()

@@ -37,11 +37,19 @@
 // them is the epilogue's two conversions an output on the SM's 16-a-clock
 // conversion pipe, mma.sync's rate (well below the wgmma peak that the
 // bound assumes) and latency: 8 warps a block, 4 blocks an SM
-// (scripts/torch_flat_ablate.py times each part).  Depthwise convs and the
-// other 1x1 convs over a multiple of 4 channels use __dp4a, four output
-// channels a thread; threads stride over output elements with the channel
-// fastest, so neighbouring threads read neighbouring bytes; the rest is
-// scalar integer work on the CUDA cores.
+// (scripts/torch_flat_ablate.py times each part).
+//
+// The 3x3 depthwise convs (all 14 of person_detect's; the plan marks them
+// F_DW3) do 13.5% of the multiply-adds but make 107,136 outputs a sample, so
+// what paces them is instructions an output, not operations.  A thread
+// keeps one group of four channels for the whole op, its taps and epilogue
+// constants in registers, and takes a strip of adjacent output pixels of
+// one row: each input word it reads serves every output of the strip whose
+// window holds it, and the taps are unrolled, with bounds tested once per
+// column and row, not per tap (op_dw3, op_dw3_stem).  Other depthwise
+// convs and the other 1x1 convs over a multiple of 4 channels use __dp4a,
+// four output channels a thread, one pixel at a time; the rest is scalar
+// integer work on the CUDA cores.
 //
 // Every read stays in bounds: a tap outside the input is skipped, or reads
 // in_zp in place of the input (either way it adds (in_zp - in_zp) * w = 0,
@@ -57,9 +65,13 @@ constexpr int NT = 3;   // tiles of 8 pixels a warp's work item in op_pw_mma
 constexpr int NF = 32;  // int32 fields per op descriptor (kernels/flatpack.py)
 enum {
   F_KIND, F_IH, F_IW, F_IC, F_OH, F_OW, F_OC, F_KH, F_KW, F_SR, F_SC, F_PT, F_PL, F_ZP, F_LO,
-  F_HI, F_W, F_D, F_BIAS, F_C1, F_RECIP, F_S0, F_S1, F_OUTZP, F_EXACT, F_IN, F_OUT, F_VEC, F_MMA
+  F_HI, F_W, F_D, F_BIAS, F_C1, F_RECIP, F_S0, F_S1, F_OUTZP, F_EXACT, F_IN, F_OUT, F_VEC, F_MMA,
+  F_DW3
 };
 enum { K_DW, K_CONV, K_PW, K_FC, K_POOL, K_SOFTMAX };
+enum { DW3_NONE, DW3_S1, DW3_S2, DW3_STEM };  // F_DW3: which 3x3 depthwise path
+constexpr int DW_STRIP = 3;    // output pixels a work item of op_dw3
+constexpr int STEM_STRIP = 4;  // output pixels a work item of op_dw3_stem
 
 struct Op {
   const int* f;
@@ -409,6 +421,181 @@ __device__ void op_pw_mma(const Op& op, const int8_t* src, int8_t* dst) {
   }
 }
 
+// A 3x3 depthwise op's constants for channel group g (channels 4g..4g+3),
+// loaded once per op: w[dh][j] = channel 4g+j's taps (dh, 0), (dh, 1),
+// (dh, 2) as one word, low byte first, high byte 0 (the plan's [3][C]
+// words); d = -in_zp * the sum of all nine taps; bias0; c1.
+struct Dw3Consts {
+  int w[3][4], d[4];
+  float b0[4], c1[4];
+  __device__ Dw3Consts(const Op& op, int g, int groups) {
+#pragma unroll
+    for (int dh = 0; dh < 3; ++dh) {
+      const int4 v = __ldg(op.at<int4>(F_W) + dh * groups + g);
+      w[dh][0] = v.x, w[dh][1] = v.y, w[dh][2] = v.z, w[dh][3] = v.w;
+    }
+    const int4 dv = __ldg(op.at<int4>(F_D) + g);
+    const float4 bv = __ldg(op.at<float4>(F_BIAS) + g), cv = __ldg(op.at<float4>(F_C1) + g);
+    d[0] = dv.x, d[1] = dv.y, d[2] = dv.z, d[3] = dv.w;
+    b0[0] = bv.x, b0[1] = bv.y, b0[2] = bv.z, b0[3] = bv.w;
+    c1[0] = cv.x, c1[1] = cv.y, c1[2] = cv.z, c1[3] = cv.w;
+  }
+};
+
+// A strip's epilogue: output pixel o of the strip (o < n) is the word of
+// channels 4g..4g+3 at dst + o * c; the rounding is chosen once per item.
+template <bool kExact, int S>
+__device__ __forceinline__ void store_strip(const int (&acc)[S][4], int8_t* dst, int n, int c,
+                                            const Dw3Consts& k, float lo, float hi) {
+  const auto rnd = [&](float y) {
+    return kExact ? mf_round_away(y, lo, hi) : mf_exact2(y, lo, hi);
+  };
+#pragma unroll
+  for (int o = 0; o < S; ++o) {
+    if (o < n) {
+      uint32_t packed = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        packed |= (uint32_t)(uint8_t)rnd(mf_affine(k.b0[j], k.c1[j], acc[o][j])) << (8 * j);
+      *reinterpret_cast<uint32_t*>(dst + o * c) = packed;
+    }
+  }
+}
+
+// 3x3 depthwise conv at stride SD (1 or 2) over C = IC = OC channels, C a
+// multiple of 4 whose groups of 4 divide the block (F_DW3 = DW3_S1,
+// DW3_S2).  A work item is the thread's group of four channels (fixed for
+// the op, so its constants stay in registers) by a strip of DW_STRIP
+// adjacent output pixels of one row; items go channel group fastest, so
+// the lanes of a warp read neighbouring words, and the odd strip length
+// puts the strips of one row on distinct banks.  Per row of the window the
+// strip reads NX words (the four channels of one input pixel; a word
+// outside the input is in_zp, which d removes again, as in op_dw_vec),
+// transposes each pair of columns into one half-word per channel, and
+// joins neighbouring pairs into a word of four consecutive columns per
+// channel.  At stride 1 the word of columns q..q+3 serves output q with the
+// taps (w0, w1, w2, 0) and output q + 1 with (0, w0, w1, w2); at stride 2
+// word i serves output i.  The sums are op_dw_vec's, so are the bits.
+template <int SD>
+__device__ void op_dw3(const Op& op, const int8_t* src, int8_t* dst) {
+  constexpr int S = DW_STRIP;
+  constexpr int NX = SD == 1 ? S + 2 : 2 * S + 1;  // input columns of a strip
+  constexpr int NP = (NX + 1) / 2;                 // their pairs
+  const int ih = op[F_IH], iw = op[F_IW], c = op[F_OC], oh = op[F_OH], ow = op[F_OW];
+  const int pt = op[F_PT], pl = op[F_PL], exact = op[F_EXACT];
+  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
+  const uint32_t zpw = __byte_perm((uint32_t)op[F_ZP], 0, 0x0000);
+  const int groups = c >> 2, g = threadIdx.x % groups;
+  const Dw3Consts k(op, g, groups);
+  const int ns = (ow + S - 1) / S;  // strips a row
+  const Div16 by_ns(ns);
+  const int8_t* sg = src + 4 * g;
+  for (int it = threadIdx.x / groups; it < oh * ns; it += kThreads / groups) {
+    const int oy = by_ns(it), ox = (it - oy * ns) * S;
+    const int r0 = oy * SD - pt, q0 = ox * SD - pl;
+    unsigned cols = 0;  // bit i: input column q0 + i lies inside the row
+#pragma unroll
+    for (int i = 0; i < NX; ++i) cols |= (unsigned)((unsigned)(q0 + i) < (unsigned)iw) << i;
+    int acc[S][4];
+#pragma unroll
+    for (int o = 0; o < S; ++o)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[o][j] = k.d[j];
+#pragma unroll
+    for (int dh = 0; dh < 3; ++dh) {
+      const int r = r0 + dh;
+      const unsigned ok = (unsigned)r < (unsigned)ih ? cols : 0u;
+      const int off = (r * iw + q0) * c;
+      uint32_t x[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+        x[i] = (ok >> i) & 1u ? *reinterpret_cast<const uint32_t*>(sg + off + i * c) : zpw;
+      // pair i: channels (0, 1) and (2, 3) of columns 2i, 2i+1; a last
+      // column alone is paired with itself (its partner's tap weight is 0)
+      uint32_t p01[NP], p23[NP];
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const uint32_t b = x[2 * i + 1 < NX ? 2 * i + 1 : 2 * i];
+        p01[i] = __byte_perm(x[2 * i], b, 0x5140);
+        p23[i] = __byte_perm(x[2 * i], b, 0x7362);
+      }
+#pragma unroll
+      for (int i = 0; i + 1 < NP; ++i) {
+        // channel j's columns 2i..2i+3
+        const uint32_t xw[4] = {
+            __byte_perm(p01[i], p01[i + 1], 0x5410), __byte_perm(p01[i], p01[i + 1], 0x7632),
+            __byte_perm(p23[i], p23[i + 1], 0x5410), __byte_perm(p23[i], p23[i + 1], 0x7632)};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (SD == 1) {
+            if (2 * i < S) acc[2 * i][j] = __dp4a((int)xw[j], k.w[dh][j], acc[2 * i][j]);
+            if (2 * i + 1 < S)
+              acc[2 * i + 1][j] =
+                  __dp4a((int)xw[j], (int)((unsigned)k.w[dh][j] << 8), acc[2 * i + 1][j]);
+          } else if (i < S) {
+            acc[i][j] = __dp4a((int)xw[j], k.w[dh][j], acc[i][j]);
+          }
+        }
+      }
+    }
+    int8_t* out = dst + (oy * ow + ox) * c + 4 * g;
+    if (exact) store_strip<true>(acc, out, ow - ox, c, k, lo, hi);
+    else store_strip<false>(acc, out, ow - ox, c, k, lo, hi);
+  }
+}
+
+// The 3x3 stride-2 depth-multiplier stem: one input channel broadcast to C
+// = OC output channels (F_DW3 = DW3_STEM; the plan takes it where the left
+// padding is 1 and the input row a multiple of 4 bytes).  A work item is
+// the thread's group of four channels by STEM_STRIP output pixels 4s..4s+3
+// of one row, whose windows cover bytes 8s-1 .. 8s+7 of each input row:
+// three aligned words (8s-4.., 8s.., 8s+4..; a word outside the input is
+// in_zp).  Every channel reads the same byte, so the word of output 4s+j's
+// columns, bytes 8s-1+2j .. 8s+2+2j (the last, of weight 0, any byte),
+// is one byte permutation and no transpose, and serves four __dp4a.
+__device__ void op_dw3_stem(const Op& op, const int8_t* src, int8_t* dst) {
+  constexpr int S = STEM_STRIP;
+  const int ih = op[F_IH], iw = op[F_IW], c = op[F_OC], oh = op[F_OH], ow = op[F_OW];
+  const int pt = op[F_PT], exact = op[F_EXACT];
+  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
+  const uint32_t zpw = __byte_perm((uint32_t)op[F_ZP], 0, 0x0000);
+  const int groups = c >> 2, g = threadIdx.x % groups;
+  const Dw3Consts k(op, g, groups);
+  const int ns = (ow + S - 1) / S;
+  const Div16 by_ns(ns);
+  for (int it = threadIdx.x / groups; it < oh * ns; it += kThreads / groups) {
+    const int oy = by_ns(it), ox = (it - oy * ns) * S;
+    const int r0 = 2 * oy - pt, b = 2 * ox - 4;
+    unsigned cols = 0;  // bit m: word m, columns b+4m .. b+4m+3, lies inside the row
+#pragma unroll
+    for (int m = 0; m < 3; ++m) cols |= (unsigned)((unsigned)(b + 4 * m) < (unsigned)iw) << m;
+    int acc[S][4];
+#pragma unroll
+    for (int o = 0; o < S; ++o)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[o][j] = k.d[j];
+#pragma unroll
+    for (int dh = 0; dh < 3; ++dh) {
+      const int r = r0 + dh;
+      const unsigned ok = (unsigned)r < (unsigned)ih ? cols : 0u;
+      const int off = r * iw + b;
+      uint32_t w[3];
+#pragma unroll
+      for (int m = 0; m < 3; ++m)
+        w[m] = (ok >> m) & 1u ? *reinterpret_cast<const uint32_t*>(src + off + 4 * m) : zpw;
+      const uint32_t xw[S] = {__byte_perm(w[0], w[1], 0x6543), __byte_perm(w[1], w[2], 0x4321),
+                              __byte_perm(w[1], w[2], 0x6543), w[2] >> 8};
+#pragma unroll
+      for (int o = 0; o < S; ++o)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[o][j] = __dp4a((int)xw[o], k.w[dh][j], acc[o][j]);
+    }
+    int8_t* out = dst + (oy * ow + ox) * c + 4 * g;
+    if (exact) store_strip<true>(acc, out, ow - ox, c, k, lo, hi);
+    else store_strip<false>(acc, out, ow - ox, c, k, lo, hi);
+  }
+}
+
 // FullyConnected: one warp an output, lanes over K, then a shuffle sum
 // (integer, so the order does not matter).  Weights are [N][K].
 __device__ void op_fc(const Op& op, const int8_t* src, int8_t* dst) {
@@ -498,8 +685,14 @@ __global__ void __launch_bounds__(kThreads, 4)
       int8_t* dst = (o & 1) ? buf_b : buf_a;
       switch (op[F_KIND]) {
         case K_DW:
-          if (op[F_VEC]) op_dw_vec(op, src, dst);
-          else op_dw(op, src, dst);
+          switch (op[F_DW3]) {
+            case DW3_S1: op_dw3<1>(op, src, dst); break;
+            case DW3_S2: op_dw3<2>(op, src, dst); break;
+            case DW3_STEM: op_dw3_stem(op, src, dst); break;
+            default:
+              if (op[F_VEC]) op_dw_vec(op, src, dst);
+              else op_dw(op, src, dst);
+          }
           break;
         case K_CONV: op_conv(op, src, dst); break;
         case K_PW:

@@ -78,9 +78,14 @@ KINDS = {"dw": 0, "conv": 1, "pw": 2, "fc": 3, "pool": 4, "softmax": 5}
 NF = 32  # int32 fields per op descriptor
 (F_KIND, F_IH, F_IW, F_IC, F_OH, F_OW, F_OC, F_KH, F_KW, F_SR, F_SC, F_PT, F_PL, F_ZP, F_LO, F_HI,
  F_W, F_D, F_BIAS, F_C1, F_RECIP, F_S0, F_S1, F_OUTZP, F_EXACT, F_IN, F_OUT, F_VEC,
- F_MMA) = range(29)
+ F_MMA, F_DW3) = range(30)
+# F_DW3: the 3x3 depthwise path of an op (csrc/flatpack.cu's op_dw3<1>,
+# op_dw3<2>, op_dw3_stem), 0 for none
+DW3_NONE, DW3_S1, DW3_S2, DW3_STEM = range(4)
 THREADS = 256  # threads a block in csrc/flatpack.cu
 NT = 3  # tiles of 8 pixels a warp's work item in csrc/flatpack.cu's op_pw_mma
+DW_STRIP = 3  # output pixels a work item of op_dw3
+STEM_STRIP = 4  # output pixels a work item of op_dw3_stem
 
 
 @dataclass
@@ -415,6 +420,11 @@ def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
                          .astype(np.int32))
         elif op.kind == "fc":
             f[F_W] = put(np.ascontiguousarray(op.weights.T).astype(np.int8))  # [N, K]
+        elif dw3_path(op):
+            f[F_DW3] = dw3_path(op)
+            f[F_W] = put(dw3_words(op.weights))
+            f[F_D] = put((-op.in_zp * op.weights.reshape(9, -1).astype(np.int64).sum(0))
+                         .astype(np.int32))
         elif op.kind == "dw" and _dw_vec(op):
             # [ceil(T/4)][C] words: word (i, c) packs taps 4i..4i+3 (tap =
             # dh*KW + dw) of channel c, zero-padded; d[c] = -in_zp * sum of
@@ -442,6 +452,35 @@ def _dw_vec(op: FlatOp) -> bool:
     of 1 channel."""
     c = op.out_shape[2]
     return c % 4 == 0 and op.in_shape[2] in (1, c) and THREADS % (c // 4) == 0
+
+
+def dw3_path(op: FlatOp) -> int:
+    """The kernel's 3x3 depthwise path for an op (``F_DW3``), a rule on
+    shape fixed in the plan: ``DW3_S1``/``DW3_S2`` for a 3x3 window at
+    stride 1 or 2 in both directions over as many input as output channels,
+    ``DW3_STEM`` for a 3x3/s2 depth-multiplier stem (one input channel) with
+    a left padding of 1 over a row of a multiple of 4 bytes, each with a
+    multiple of 4 channels whose groups of 4 divide the block; else
+    ``DW3_NONE`` (``op_dw_vec`` or ``op_dw``)."""
+    if op.kind != "dw" or not _dw_vec(op):
+        return DW3_NONE
+    g = op.geom
+    if (g.k_rows, g.k_cols) != (3, 3) or g.stride_rows != g.stride_cols:
+        return DW3_NONE
+    if op.in_shape[2] == op.out_shape[2] and g.stride_rows in (1, 2):
+        return DW3_S1 if g.stride_rows == 1 else DW3_S2
+    if g.stride_rows == 2 and g.pad_amounts()[2] == 1 and op.in_shape[1] % 4 == 0:
+        return DW3_STEM
+    return DW3_NONE
+
+
+def dw3_words(w: np.ndarray) -> np.ndarray:
+    """int8 depthwise taps ``[3, 3, C]`` as the 3x3 path's int32 words
+    ``[3][C]``: word (dh, c) packs taps (dh, 0), (dh, 1), (dh, 2) of
+    channel c, low byte first, and a 0 high byte."""
+    words = np.zeros((3, w.shape[2], 4), np.int8)
+    words[:, :, :3] = w.transpose(0, 2, 1)
+    return words.view(np.int32).reshape(3, w.shape[2])
 
 
 def pw_mma(op: FlatOp) -> bool:

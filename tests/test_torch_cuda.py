@@ -107,10 +107,12 @@ def test_qdwconv_kernel_matches_plain(cuda, B, H, W, C, kh, kw, sr, sc):
     ("sine", None, "exact2"), ("speech", None, "exact2"), ("speech", None, "exact"),
     ("person_detect", None, "exact2"), ("person_detect", 2, "exact2"),
     ("person_detect", 12, "exact"), ("pw_edge_graph", None, "exact2"),
-    ("pw_edge_graph", None, "exact")])
+    ("pw_edge_graph", None, "exact"), ("dw_edge_graph", None, "exact2"),
+    ("dw_edge_graph", None, "exact")])
 def test_flat_kernel_matches_plain(cuda, name, max_layers, requant):
     """The pw edge graph's 1x1 convs cover the edges of the tensor-core
-    path (``chip_smoke.pw_edge_graph``)."""
+    path (``chip_smoke.pw_edge_graph``), the dw edge graph's depthwise
+    convs those of the 3x3 depthwise path (``chip_smoke.dw_edge_graph``)."""
     g = _graph(name)
     flat_fn, n, meta = build_flat_kernel(g, max_layers=max_layers, requant=requant, device=cuda)
     rng = np.random.default_rng(n)
@@ -144,6 +146,8 @@ def _graph(name):
         return chip_smoke.packed_graph(np.random.default_rng(0))
     if name == "pw_edge_graph":
         return chip_smoke.pw_edge_graph(np.random.default_rng(0))
+    if name == "dw_edge_graph":
+        return chip_smoke.dw_edge_graph(np.random.default_rng(0))
     return parse(model_path(name))
 
 

@@ -162,12 +162,12 @@ def test_device_plan_layout():
             assert row[field] % 16 == 0 and row[field] < buf.size
         if op.kind == "dw":
             kh, kw, c = op.weights.shape
-            assert row[tflat.F_VEC] == (op.in_shape[2] in (1, c))  # every dw C is a multiple of 4
-            n4 = -(-kh * kw // 4)
-            words = buf[row[tflat.F_W]:row[tflat.F_W] + n4 * 4 * c].view(np.int32).reshape(n4, c)
-            taps = words.view(np.int8).reshape(n4, c, 4).transpose(0, 2, 1).reshape(-1, c)
-            assert np.array_equal(taps[:kh * kw], op.weights.reshape(-1, c))
-            assert not taps[kh * kw:].any()
+            # every dw op is 3x3 at stride 1 or 2: all take the 3x3 path
+            assert row[tflat.F_DW3] == (tflat.DW3_STEM if op.in_shape[2] == 1
+                                        else op.geom.stride_rows) and not row[tflat.F_VEC]
+            words = buf[row[tflat.F_W]:row[tflat.F_W] + 3 * 4 * c].view(np.int32).reshape(3, c)
+            taps = words.view(np.int8).reshape(3, c, 4).transpose(0, 2, 1)  # [dh, dw + pad, c]
+            assert np.array_equal(taps[:, :3], op.weights) and not taps[:, 3].any()
             d = buf[row[tflat.F_D]:row[tflat.F_D] + 4 * c].view(np.int32)
             assert np.array_equal(d, -op.in_zp * op.weights.reshape(-1, c).astype(np.int32).sum(0))
         if op.kind == "pw":
