@@ -12,7 +12,9 @@ line; any failure raises and the script exits non-zero:
    in parallel.
 3. kernels: each kernel held bit-equal against its plain torch version:
    ``qgemm``/``qdwconv`` at every layer shape of sine, speech and
-   person_detect (batch 64) and on edge cases; ``flatpack`` on
+   person_detect (batch 64) and on edge cases (``qdwconv``'s, on its
+   unpadded input, at the edges of its 3x3 tile paths and of its general
+   path: ``DW_EDGE_CASES``); ``flatpack`` on
    person_detect (whole, and its first 2 and 12 layers), speech and sine at
    batches 64, 3 and 0, on a small conv graph (and two prefixes) whose
    ops take the kernel's general paths, on a graph of 1x1 convs at the
@@ -35,7 +37,9 @@ line; any failure raises and the script exits non-zero:
    timed beside its plain version and its bound: the per-op kernels at
    person_detect's shapes at batch 8192 (``qgemm`` also beside
    ``torch._int_mm``, ``qdwconv`` beside cuDNN's depthwise ``conv2d`` in
-   f32 with TF32 off, first checked equal to the integer accumulators),
+   f32 with TF32 off on the padded input, the stem's channel repeated to
+   all 8, made outside the timed call, first checked equal to the integer
+   accumulators),
    ``flatpack`` on person_detect and speech at batch
    8192, ``colfc`` on sine at batch 1,048,576, ``megakernel`` (person_detect's
    fused segment) and ``packed`` (its prefix) at batch 8192.
@@ -119,6 +123,14 @@ from microflow_tpu_torch.kernels.flatpack import (
 )
 from microflow_tpu_torch.kernels.megakernel import hybrid_split_index
 from microflow_tpu_torch.kernels.packed import packed_bound
+from microflow_tpu_torch.kernels.qdwconv import (
+    PATH_GENERAL,
+    PATH_S1,
+    PATH_S2,
+    PATH_STEM,
+    zp_padded,
+)
+from microflow_tpu_torch.kernels.qdwconv import plan as qdwconv_plan
 from microflow_tpu_torch.models import GOLDENS, model_path
 from microflow_tpu_torch.ops.depthwise_conv_2d import window_sum
 
@@ -148,6 +160,33 @@ PD_PATHS = {"fused": {"megakernel": 4},
             "hybrid": {"megakernel": 4, "qdwconv": 20, "qgemm": 16},  # layers 0-8 per op
             "packed": {"packed": 4, "qdwconv": 8, "qgemm": 12}}  # layers 23-30 per op
 ACTS = (FusedActivation.NONE, FusedActivation.RELU, FusedActivation.RELU6)
+DW_PATHS = {PATH_GENERAL: "general", PATH_S1: "3x3/s1", PATH_S2: "3x3/s2", PATH_STEM: "stem"}
+# qdwconv edge cases: (B, H, W, input channels, C, KH, KW, row and column
+# strides, padding, centred weights fit int8, in_zp, bytes the input lies
+# past an aligned address)
+DW_EDGE_CASES = (
+    (3, 2, 2, 8, 8, 3, 3, 1, 1, "SAME", True, 99, 0),       # smaller than a strip and a band
+    (2, 1, 1, 4, 4, 3, 3, 2, 2, "SAME", True, -128, 0),
+    (3, 11, 13, 12, 12, 3, 3, 2, 2, "SAME", True, 45, 0),   # odd sizes at stride 2
+    (2, 9, 15, 32, 32, 3, 3, 2, 2, "SAME", True, -128, 0),
+    (3, 10, 9, 8, 8, 3, 3, 2, 2, "VALID", True, -1, 0),     # VALID
+    (2, 7, 8, 20, 20, 3, 3, 1, 1, "VALID", True, 60, 0),
+    (2, 13, 15, 1, 8, 3, 3, 2, 2, "SAME", True, -7, 0),     # the stem at an odd width
+    (5, 9, 12, 1, 12, 3, 3, 2, 2, "SAME", True, 3, 0),
+    (2, 9, 5, 4, 4, 3, 3, 2, 2, "SAME", True, -60, 0),      # rows of 20 bytes
+    (2, 9, 8, 8, 8, 3, 3, 1, 1, "SAME", True, 17, 1),       # an input at an odd address
+    (7, 3, 3, 256, 256, 3, 3, 1, 1, "SAME", True, 11, 0),   # several samples a block
+    (3, 4, 4, 1024, 1024, 3, 3, 2, 2, "SAME", True, 0, 0),  # 256 channel groups
+    (1, 48, 48, 8, 8, 3, 3, 1, 1, "SAME", True, -128, 0),   # batch 1
+    (0, 9, 9, 8, 8, 3, 3, 1, 1, "SAME", True, 5, 0),        # batch 0
+    # the general path: weights that need i32, C % 4 != 0, speech's 10x8/s2
+    # stem, other windows and unequal strides
+    (4, 9, 9, 12, 12, 3, 3, 1, 1, "SAME", False, -5, 0),
+    (3, 11, 11, 5, 5, 3, 3, 2, 2, "SAME", True, 7, 0),
+    (2, 49, 40, 1, 8, 10, 8, 2, 2, "SAME", True, -128, 0),
+    (2, 13, 10, 3, 3, 5, 5, 1, 1, "VALID", True, 30, 3),
+    (2, 13, 10, 3, 3, 3, 2, 2, 1, "VALID", True, -20, 0),
+)
 
 
 def emit(obj) -> None:
@@ -201,9 +240,19 @@ def _shape(name, args, kw) -> dict:
     if name == "qgemm":
         (m, k), n = args[0].shape, args[1].shape[1]
         return {"M": m, "K": k, "N": n, "act": kw["activation"].value}
-    b, hp, wp, c = args[0].shape
-    return {"B": b, "HP": hp, "WP": wp, "C": c, "kh": kw["kh"], "kw": kw["kw"],
-            "sr": kw["sr"], "sc": kw["sc"], "act": kw["activation"].value}
+    b, h, w, cin = args[0].shape
+    return {"B": b, "H": h, "W": w, "Cin": cin, "C": args[1].shape[2], "kh": kw["kh"],
+            "kw": kw["kw"], "sr": kw["sr"], "sc": kw["sc"], "pad": [kw["pad_top"], kw["pad_left"]],
+            "act": kw["activation"].value, "path": DW_PATHS[dw_plan(args, kw).path]}
+
+
+def dw_plan(args, kw):
+    """The launch plan ``qdwconv`` takes for these arguments."""
+    x = args[0]
+    return qdwconv_plan(*x.shape, args[1].shape[2], kh=kw["kh"], kw=kw["kw"], sr=kw["sr"],
+                        sc=kw["sc"], pad_top=kw["pad_top"], pad_left=kw["pad_left"], oh=kw["oh"],
+                        ow=kw["ow"], int8_taps=kw.get("int8_taps", False),
+                        x_align=next(a for a in (16, 4, 1) if x.data_ptr() % a == 0))
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -287,17 +336,35 @@ def edge_cases(dev, rng) -> dict:
             check("qgemm", (i8((M, K)), i8((K, N)), i32(rng.integers(-9, 9, N)),
                             i32(rng.integers(-5000, 5000, N)), f32(rng.normal(0, 20, N)),
                             f32(rng.uniform(1e-4, 0.01, N))), kw, f"M{M} K{K} N{N} {act.value}")
-    # depthwise: odd channel counts (scalar path), the 10x8/s2 stem, strides
-    for (B, HP, WP, C, kh, kw_, sr, sc) in ((3, 11, 11, 5, 3, 3, 2, 2), (2, 58, 47, 8, 10, 8, 2, 2),
-                                             (4, 9, 9, 12, 3, 3, 1, 1), (2, 13, 10, 3, 3, 2, 2, 1)):
-        oh, ow = (HP - kh) // sr + 1, (WP - kw_) // sc + 1
+    # depthwise, unpadded input: the tile paths' edges (smaller than a strip
+    # and a band, odd sizes at stride 2, VALID, the stem at an odd width,
+    # rows staged in 16-, 4- and 1-byte units, several samples a block, up
+    # to 1024 channels), and the general path (C % 4 != 0, the 10x8/s2
+    # stem, other windows, weights that need i32); batches 0 and 1; input
+    # zero points of -128 and of positive values; every activation
+    for (B, H, W, cin, C, kh, kw_, sr, sc, pad, taps, zp, offset) in DW_EDGE_CASES:
+        geom = (ViewGeometry(H, W, kh, kw_, -(-H // sr), -(-W // sc), sr, sc, ViewPadding.SAME)
+                if pad == "SAME" else ViewGeometry(H, W, kh, kw_, (H - kh) // sr + 1,
+                                                   (W - kw_) // sc + 1, sr, sc, ViewPadding.VALID))
+        top, _, left, _ = geom.pad_amounts()
         for act in ACTS:
-            wc = torch.from_numpy(rng.integers(-255, 256, (kh, kw_, C)).astype(np.int32)).to(dev)
-            kw = dict(kh=kh, kw=kw_, sr=sr, sc=sc, oh=oh, ow=ow, activation=act,
-                      out_scale=float(rng.uniform(0.01, 0.1)), out_zp=int(rng.integers(-20, 20)))
-            check("qdwconv", (i8((B, HP, WP, C)), wc, i32(rng.integers(-3000, 3000, C)),
-                              f32(rng.normal(0, 20, C)), f32(rng.uniform(1e-4, 0.01, C))), kw,
-                  f"{kh}x{kw_}/({sr},{sc}) C{C} {act.value}")
+            xn = rng.integers(-128, 128, (B, H, W, cin), dtype=np.int8)
+            if xn.size >= 2:
+                xn.flat[:2] = (-128, 127)
+            buf = torch.empty(xn.size + offset, dtype=torch.int8, device=dev)
+            x = buf[offset:].view(xn.shape)  # the input at ``offset`` bytes from an aligned one
+            x.copy_(torch.from_numpy(xn))
+            w = rng.integers(-128, 128, (kh, kw_, C))
+            w[0, 0, 0::2], w[-1, -1, 1::2] = -128, 127
+            wc = w - (0 if taps else rng.integers(-9, 10, C))
+            kw = dict(in_zp=zp, pad_top=top, pad_left=left, kh=kh, kw=kw_, sr=sr, sc=sc,
+                      oh=geom.out_rows, ow=geom.out_cols, activation=act,
+                      out_scale=float(rng.uniform(0.01, 0.1)), out_zp=int(rng.integers(-20, 20)),
+                      int8_taps=taps)
+            args = (x, i32(wc), i32(-zp * wc.sum(axis=(0, 1))), f32(rng.normal(0, 20, C)),
+                    f32(rng.uniform(1e-3, 5e-3, C)))
+            check("qdwconv", args, kw, f"B{B} {H}x{W}x{cin}->{C} {kh}x{kw_}/({sr},{sc}) {pad} "
+                  f"zp{zp} +{offset} {DW_PATHS[dw_plan(args, kw).path]} {act.value}")
     return errs
 
 
@@ -735,13 +802,21 @@ def int_mm_call(args):
     return lambda: torch._int_mm(x, w)
 
 
+def dw_padded(args, kw) -> torch.Tensor:
+    """A ``qdwconv`` call's input as the JAX kernel takes it: padded with
+    ``in_zp``, the stem's one channel repeated to all C."""
+    geo = {k: kw[k] for k in ("in_zp", "pad_top", "pad_left", "kh", "kw", "sr", "sc", "oh", "ow")}
+    return zp_padded(args[0], args[1].shape[2], **geo).contiguous()
+
+
 def dw_conv_call(args, kw):
     """cuDNN's depthwise convolution (``conv2d`` with ``groups=C``, f32,
-    TF32 off) on the same padded input and centred weights, made f32 and
-    NCHW (channels-last in memory) outside the timed call.  Returns the
-    call and its output as int32 NHWC: the accumulators without ``d``,
-    exact since every partial sum is an integer below 9 * 128 * 255 < 2**24."""
-    xp, wc = args[0], args[1]
+    TF32 off) on the padded input (the stem's channel repeated to all C)
+    and the centred weights, made f32 and NCHW (channels-last in memory)
+    outside the timed call.  Returns the call and its output as int32 NHWC:
+    the accumulators without ``d``, exact since every partial sum is an
+    integer below 9 * 128 * 255 < 2**24."""
+    xp, wc = dw_padded(args, kw), args[1]
     c = xp.shape[3]
     x = xp.permute(0, 3, 1, 2).to(torch.float32)
     w = wc.permute(2, 0, 1).unsqueeze(1).to(torch.float32).contiguous()  # [C, 1, KH, KW]
@@ -753,7 +828,7 @@ def dw_conv_call(args, kw):
 def dw_accumulators(args, kw) -> torch.Tensor:
     """The plain version's int32 accumulators of a ``qdwconv`` call, without
     ``d``."""
-    xp, wc = args[0], args[1]
+    xp, wc = dw_padded(args, kw), args[1]
     geom = ViewGeometry(xp.shape[1], xp.shape[2], kw["kh"], kw["kw"], kw["oh"], kw["ow"],
                         kw["sr"], kw["sc"], ViewPadding.VALID)
     return window_sum(xp, wc.to(torch.int32), geom)

@@ -70,7 +70,7 @@ import torch
 
 from ..core.numerics import broadcast_per_channel, const_f32, f32, torch_dtype
 from ..core.quantize import dequantize, quantize
-from ..core.tensor import pad_nhwc, reshape_2d
+from ..core.tensor import reshape_2d
 from ..ops import (
     average_pool_2d,
     conv_2d,
@@ -202,17 +202,15 @@ def _dw_kernel(layer: DepthwiseConv2DLayer, p: dict, x: torch.Tensor, k: dict) -
 
     geom = layer.geom
     in_zp = layer.in_q.zp0
-    ch = layer.weights.shape[2]
-    if x.shape[-1] != ch:
-        # the depth-multiplier stem (the parser admits no other channel
-        # mismatch): every channel reads input channel 0; the padding copy
-        # below materialises the broadcast
-        x = x.expand(*x.shape[:-1], ch)
-    xp = pad_nhwc(x, geom, in_zp).contiguous()
+    # x has the weights' channels or one (the depth-multiplier stem; the
+    # parser admits no other mismatch): the kernel reads it unpadded
+    top, _, left, _ = geom.pad_amounts()
     wc = (p["weights"].to(torch.int32) - k["wzp"][None, None, :]).contiguous()
     d = (-in_zp) * wc.sum(dim=(0, 1), dtype=torch.int32)
     return qdwconv(
-        xp, wc, d.to(torch.int32), _bias0(layer, p), k["c1"],
+        x.contiguous(), wc, d.to(torch.int32), _bias0(layer, p), k["c1"],
+        in_zp=in_zp, pad_top=top, pad_left=left,
+        int8_taps=p["weights"].dtype == torch.int8 and not np.any(layer.w_q.zero_point),
         kh=geom.k_rows, kw=geom.k_cols,
         sr=geom.stride_rows, sc=geom.stride_cols,
         oh=geom.out_rows, ow=geom.out_cols,

@@ -52,20 +52,33 @@ def torch_args(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-def dw_case(rng, B, H, W, C, kh, kw, sr, sc, in_zp):
+def dw_case(rng, B, H, W, C, kh, kw, sr, sc, in_zp, cin=None):
+    """An unpadded int8 input of ``cin`` (default C) channels and the
+    kernel's other arguments, SAME-padded as the reference pads (top/left
+    ``(k - 1) // 2``)."""
     oh, ow = -(-H // sr), -(-W // sc)
-    top, left = (kh - 1) // 2, (kw - 1) // 2
-    bottom = max(0, sr * (oh - 1) + kh - 1 - top - (H - 1))
-    right = max(0, sc * (ow - 1) + kw - 1 - left - (W - 1))
-    x = rng.integers(-128, 128, (B, H, W, C), dtype=np.int8)
-    xp = np.pad(x, ((0, 0), (top, bottom), (left, right), (0, 0)), constant_values=in_zp)
+    x = rng.integers(-128, 128, (B, H, W, C if cin is None else cin), dtype=np.int8)
     w = rng.integers(-128, 128, (kh, kw, C), dtype=np.int8)
     w_zp = rng.integers(-5, 6, C).astype(np.int32)
     wc = w.astype(np.int32) - w_zp[None, None, :]
     d = (-in_zp * wc.sum(axis=(0, 1))).astype(np.int32)
     bias0 = (F32(-1) + rng.normal(0, 3, C)).astype(F32)
     c1 = rng.uniform(0.001, 0.01, C).astype(F32)
-    return xp, wc, d, bias0, c1, dict(kh=kh, kw=kw, sr=sr, sc=sc, oh=oh, ow=ow)
+    return x, wc, d, bias0, c1, dict(in_zp=in_zp, pad_top=(kh - 1) // 2, pad_left=(kw - 1) // 2,
+                                     kh=kh, kw=kw, sr=sr, sc=sc, oh=oh, ow=ow)
+
+
+def np_zp_padded(x, c, geo):
+    """``x`` padded with ``in_zp`` so that every window of ``geo`` lies
+    inside, the one channel of a stem input repeated to ``c``: the input
+    the JAX kernel takes."""
+    _, H, W, cin = x.shape
+    top, left = geo["pad_top"], geo["pad_left"]
+    bottom = max(0, geo["sr"] * (geo["oh"] - 1) + geo["kh"] - top - H)
+    right = max(0, geo["sc"] * (geo["ow"] - 1) + geo["kw"] - left - W)
+    xs = x if cin == c else np.repeat(x, c, axis=3)
+    return np.pad(xs, ((0, 0), (top, bottom), (left, right), (0, 0)),
+                  constant_values=geo["in_zp"])
 
 
 @pytest.fixture
@@ -93,13 +106,37 @@ def test_qgemm_kernel_matches_plain(cuda, M, K, N):
                                                 (8, 12, 12, 64, 3, 3, 1, 1)])
 def test_qdwconv_kernel_matches_plain(cuda, B, H, W, C, kh, kw, sr, sc):
     rng = np.random.default_rng(C)
-    xp, wc, d, bias0, c1, geo = dw_case(rng, B, H, W, C, kh, kw, sr, sc, in_zp=-3)
-    args = [a.to(cuda) for a in torch_args(xp, wc, d, bias0, c1)]
+    x, wc, d, bias0, c1, geo = dw_case(rng, B, H, W, C, kh, kw, sr, sc, in_zp=-3)
+    args = [a.to(cuda) for a in torch_args(x, wc, d, bias0, c1)]
     for act in TAct:
         kwargs = dict(activation=act, out_scale=0.05, out_zp=2, **geo)
         n = LAUNCHES["qdwconv"]
         assert torch.equal(qdwconv(*args, **kwargs), qdwconv_reference(*args, **kwargs))
         assert LAUNCHES["qdwconv"] == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.DW_EDGE_CASES)
+def test_qdwconv_edge_cases_match_plain(cuda, case):
+    """The unpadded input at the edges of the 3x3 tile paths and on the
+    general path (``chip_smoke.DW_EDGE_CASES``), every activation."""
+    B, H, W, cin, C, kh, kw, sr, sc, pad, taps, zp, offset = case
+    rng = np.random.default_rng(H * W + C)
+    x, wc, d, bias0, c1, geo = dw_case(rng, B, H, W, C, kh, kw, sr, sc, in_zp=zp, cin=cin)
+    if pad == "VALID":
+        geo.update(pad_top=0, pad_left=0, oh=(H - kh) // sr + 1, ow=(W - kw) // sc + 1)
+    if taps:  # the promise the tile paths need: centred weights that fit int8
+        wc = wc.clip(-128, 127).astype(np.int32)
+    d = (-zp * wc.sum(axis=(0, 1))).astype(np.int32)
+    buf = torch.empty(x.size + offset, dtype=torch.int8, device=cuda)
+    xd = buf[offset:].view(x.shape)  # the input at ``offset`` bytes past an aligned address
+    xd.copy_(torch.from_numpy(x))
+    args = [xd] + [a.to(cuda) for a in torch_args(wc, d, bias0, c1)]
+    for act in TAct:
+        kwargs = dict(activation=act, out_scale=0.05, out_zp=-4, int8_taps=taps, **geo)
+        n = LAUNCHES["qdwconv"]
+        assert torch.equal(qdwconv(*args, **kwargs), qdwconv_reference(*args, **kwargs))
+        assert LAUNCHES["qdwconv"] == n + (B > 0)
 
 
 @pytest.mark.cuda

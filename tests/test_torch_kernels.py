@@ -25,7 +25,7 @@ from microflow_tpu_torch.kernels import (
     qgemm,
     qgemm_reference,
 )
-from test_torch_cuda import dw_case, gemm_case, torch_args
+from test_torch_cuda import dw_case, gemm_case, np_zp_padded, torch_args
 
 F32 = np.float32
 
@@ -72,11 +72,13 @@ def test_qgemm_reference_on_fma_sensitive_epilogues():
 ])
 def test_qdwconv_reference_matches_pallas(B, H, W, C, kh, kw, sr, sc):
     rng = np.random.default_rng(11)
-    xp, wc, d, bias0, c1, geo = dw_case(rng, B, H, W, C, kh, kw, sr, sc, in_zp=-2)
+    x, wc, d, bias0, c1, geo = dw_case(rng, B, H, W, C, kh, kw, sr, sc, in_zp=-2)
+    xp = np_zp_padded(x, C, geo)
     kwargs = dict(out_scale=0.07, out_zp=-1, **geo)
+    jkw = {k: v for k, v in kwargs.items() if k not in ("in_zp", "pad_top", "pad_left")}
     ref = np.asarray(j_qdwconv(*(jnp.asarray(a) for a in (xp, wc, d, bias0, c1)),
-                               activation=JAct.RELU, **kwargs))
-    got = qdwconv_reference(*torch_args(xp, wc, d, bias0, c1), activation=TAct.RELU, **kwargs)
+                               activation=JAct.RELU, **jkw))
+    got = qdwconv_reference(*torch_args(x, wc, d, bias0, c1), activation=TAct.RELU, **kwargs)
     q = np.zeros(ref.shape, np.int64)
     for m in range(kh):
         for n in range(kw):
@@ -92,8 +94,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     before = LAUNCHES.copy()
     kw = dict(activation=TAct.RELU6, out_scale=0.03, out_zp=-5)
     assert torch.equal(qgemm(*args, **kw), qgemm_reference(*args, **kw))
-    xp, wc, d, bias0, c1, geo = dw_case(rng, 2, 7, 7, 6, 3, 3, 2, 2, in_zp=1)
-    dargs = torch_args(xp, wc, d, bias0, c1)
+    x, wc, d, bias0, c1, geo = dw_case(rng, 2, 7, 7, 6, 3, 3, 2, 2, in_zp=1)
+    dargs = torch_args(x, wc, d, bias0, c1)
     assert torch.equal(qdwconv(*dargs, **kw, **geo), qdwconv_reference(*dargs, **kw, **geo))
     assert LAUNCHES == before
 
