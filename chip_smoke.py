@@ -27,7 +27,11 @@ line; any failure raises and the script exits non-zero:
    modes at batch 1000; ``megakernel`` on every segment of person_detect's
    ``fused`` and ``hybrid`` forwards, speech's and sine's ``fused``, the
    conv graph and its variant with a leading Quantize and nonzero weight
-   zero points, at batches 64, 3 and 0;
+   zero points, ``pw_edge_graph``, ``dw_edge_graph`` and its variant with
+   nonzero per-channel weight zero points (``dw_edge_graph(wzp=True)``),
+   at batches 64, 3 and 0 (the phase prints how many ops of each take each
+   of the kernel's paths: person_detect's 14 depthwise ops on the 3x3
+   strips and 13 1x1 convs on ``mma.sync``);
    ``packed`` on person_detect's prefixes (whole, 5, 9 and 15 layers) and
    a small packable graph at batches 64, 3 and 0; ``flatpack``, ``colfc``
    and ``megakernel`` on two small FC graphs whose constants put the
@@ -579,9 +583,14 @@ DW_EDGE_ZP = (45, -128, 99, -128, 17, -128, 3, -128, 60, -128, 11)  # input zero
 # the path of each of its depthwise layers in the flat kernel: all take the 3x3 path
 DW_EDGE_DW3 = {0: DW3_STEM, 1: DW3_S1, 2: DW3_S2, 4: DW3_S1, 5: DW3_S2, 7: DW3_S1, 8: DW3_S2,
                9: DW3_S1}
+# the megakernel's path of each op of dw_edge_graph(wzp=True): the strips
+# wherever the centred taps fit int8, op_dw for the last layer, op_pw for
+# the 1x1 convs with weight zero points
+DW_EDGE_WZP_PATHS = ["dw3_stem", "dw3_s1", "dw3_s2", "pw", "dw3_s1", "dw3_s2", "pw", "dw3_s1",
+                     "dw3_s2", "dw"]
 
 
-def dw_edge_graph(rng) -> Graph:
+def dw_edge_graph(rng, wzp: bool = False) -> Graph:
     """A chain of 3x3 depthwise convs of the port's IR at the edges of the
     flat kernel's 3x3 path, int8 [61, 52, 1] in: the IC = 1 stride-2 stem
     to 8 channels (26 output columns, a partial strip of 4), then at 8
@@ -591,7 +600,11 @@ def dw_edge_graph(rng) -> Graph:
     and VALID stride 1 (-> 1x1).  Widths that are not a multiple of the
     strip of 3, input zero points of -128 and of positive values
     (``DW_EDGE_ZP``), random weights holding -128 and 127, every activation
-    (RELU6 on every third layer)."""
+    (RELU6 on every third layer).  With ``wzp`` (the megakernel's variant):
+    nonzero per-channel weight zero points on every layer; the depthwise
+    taps drawn so that the centred taps ``w - w_zp`` fit int8 and reach
+    -128 and 127, except in the last layer, where they reach -255 and 255
+    (``DW_EDGE_WZP_PATHS``)."""
     q = lambda zp: QuantInfo(np.array([rng.uniform(0.02, 0.1)], np.float32),
                              np.array([zp], np.int64))
     w_q = QuantInfo(np.ones(1, np.float32), np.zeros(1, np.int64))
@@ -601,6 +614,9 @@ def dw_edge_graph(rng) -> Graph:
         out_q, act = q(DW_EDGE_ZP[i + 1]), ACTS[i % 3]
         h, w, c_in = shape
         c0 = rng.normal(0, 20, spec[-1]).astype(np.float32)
+        if wzp:
+            zp = rng.choice([-9, -4, -1, 1, 3, 8], spec[-1])
+            w_q = QuantInfo(np.ones(len(zp), np.float32), zp.astype(np.int64))
         if kind == "pw":
             (c_out,) = spec
             g = ViewGeometry(h, w, 1, 1, h, w, 1, 1, ViewPadding.VALID)
@@ -615,15 +631,24 @@ def dw_edge_graph(rng) -> Graph:
             else:
                 g = ViewGeometry(h, w, 3, 3, (h - 3) // s + 1, (w - 3) // s + 1, s, s,
                                  ViewPadding.VALID)
-            wd = rng.integers(-128, 128, (3, 3, c_out)).astype(np.int8)
-            wd[0, 0, 0::2], wd[2, 2, 1::2] = -128, 127
+            if wzp:  # centred taps in [-128, 127]: -128 where w_zp > 0, 127 where < 0
+                wd = rng.integers(np.maximum(-128, zp - 128), np.minimum(127, zp + 127) + 1,
+                                  (3, 3, c_out))
+                wd[0, 0, zp > 0], wd[2, 2, zp < 0] = zp[zp > 0] - 128, zp[zp < 0] + 127
+                if i == len(DW_EDGE) - 1:  # centred taps of 255 and -255
+                    w_q.zero_point[:2] = (-128, 127)
+                    wd[1, 1, :2] = (127, -128)
+                wd = wd.astype(np.int8)
+            else:
+                wd = rng.integers(-128, 128, (3, 3, c_out)).astype(np.int8)
+                wd[0, 0, 0::2], wd[2, 2, 1::2] = -128, 127
             layers.append(DepthwiseConv2DLayer(
                 i, wd, in_q, w_q, w_q, out_q, c0, rng.uniform(1e-3, 5e-3, c_out).astype(np.float32),
                 g, act, (g.out_rows, g.out_cols, c_out)))
         shape, in_q = layers[-1].out_shape, out_q
-    return Graph(name="dw_edge_graph", layers=layers, input_shape=(61, 52, 1), input_q=input_q,
-                 input_dtype=np.dtype(np.int8), output_shape=shape, output_q=in_q,
-                 output_dtype=np.dtype(np.int8))
+    return Graph(name="dw_edge_graph_wzp" if wzp else "dw_edge_graph", layers=layers,
+                 input_shape=(61, 52, 1), input_q=input_q, input_dtype=np.dtype(np.int8),
+                 output_shape=shape, output_q=in_q, output_dtype=np.dtype(np.int8))
 
 
 def packed_graph(rng) -> Graph:
@@ -667,12 +692,14 @@ def whole_network_checks(dev, rng) -> dict:
     plain versions on the card: max |kernel - plain| per kernel and the
     number of checks."""
     errs = {"flatpack": [], "colfc": [], "megakernel": [], "packed": []}
-    mma_ops, dw3_ops = {}, {}
+    mma_ops, dw3_ops, mega_paths = {}, {}, {}
 
     def flat_check(g, label, batches, max_layers=None):
         flat_fn, _, meta = build_flat_kernel(g, max_layers=max_layers, device=dev)
-        mma_ops[label] = [op.layer_idx for op in flat_fn.ops if pw_mma(op)]
-        dw3_ops[label] = {op.layer_idx: dw3_path(op) for op in flat_fn.ops if dw3_path(op)}
+        mma_ops[label] = [op.layer_idx for op in flat_fn.ops
+                          if op.kind == "pw" and pw_mma(op.in_shape, op.out_shape)]
+        dw3_ops[label] = {op.layer_idx: path for op in flat_fn.ops if op.kind == "dw"
+                          and (path := dw3_path(op.geom, op.in_shape, op.out_shape))}
         for b in batches:
             xn = rng.integers(-128, 128, (b, meta["in_lanes"]), dtype=np.int8)
             xn.flat[:2] = (-128, 127)  # both int8 rails in every case
@@ -681,8 +708,10 @@ def whole_network_checks(dev, rng) -> dict:
                 flat_fn(x), flat_forward_reference(flat_fn.ops, x))})
 
     def mega_check(g, label, start, batches, x=None):
-        """Every segment of the fused (``start`` 0) or hybrid forward."""
+        """Every segment of the fused (``start`` 0) or hybrid forward; the
+        kernel's path of each op is kept in ``mega_paths``."""
         fwd = build_fused_forward(g, start, device=dev)
+        mega_paths[label] = [p for seg in fwd.segments for p in seg.paths]
         for seg in fwd.segments:
             idx = seg.segment.indices
             for b in batches:
@@ -736,8 +765,20 @@ def whole_network_checks(dev, rng) -> dict:
         g = parse(model_path(name))
         mega_check(g, f"{name} fused", 0, batches)
     mega_check(pd, "person_detect hybrid", hybrid_split_index(pd), batches)
-    for g in (cg, conv_graph(rng, wzp=True)):  # no layer of 64 channels: no hybrid segment
+    # no layer of 64 channels: no hybrid segment
+    for g in (cg, conv_graph(rng, wzp=True), pw_edge_graph(np.random.default_rng(0)),
+              dw_edge_graph(np.random.default_rng(0)),
+              dw_edge_graph(np.random.default_rng(0), wzp=True)):
         mega_check(g, f"{g.name} fused", 0, batches)
+    want = {"person_detect fused": {"dw3_stem": 1, "dw3_s1": 9, "dw3_s2": 4, "pw_mma": 13,
+                                    "pool": 1, "pw": 1},
+            "speech fused": {"dw_vec": 1, "fc": 1}}
+    for label, paths in want.items():
+        if count_paths(mega_paths[label]) != paths:
+            raise AssertionError(f"{label}: the megakernel's paths {mega_paths[label]}")
+    if mega_paths["dw_edge_graph_wzp fused"] != DW_EDGE_WZP_PATHS:
+        raise AssertionError(f"dw_edge_graph_wzp: the megakernel's paths "
+                             f"{mega_paths['dw_edge_graph_wzp fused']}")
     for max_layers in (None, 5, 9, 15):
         packed_check(pd, f"person_detect[:{max_layers}]", batches, max_layers)
     packed_check(packed_graph(rng), "packed_graph", batches)
@@ -757,7 +798,13 @@ def whole_network_checks(dev, rng) -> dict:
         raise AssertionError("no lane of edge_c1_one on the exact2 corner")
     return {"checks": errs, "fma_sensitive_lanes": n_fma, "exact2_corner_lanes": corners,
             "mma_ops": {k: len(v) for k, v in mma_ops.items()},
-            "dw3_ops": {k: len(v) for k, v in dw3_ops.items()}}
+            "dw3_ops": {k: len(v) for k, v in dw3_ops.items()},
+            "mega_paths": {k: count_paths(v) for k, v in mega_paths.items()}}
+
+
+def count_paths(paths: list) -> dict:
+    """How many ops take each path, by path name."""
+    return {p: paths.count(p) for p in sorted(set(paths))}
 
 
 # --- timing -------------------------------------------------------------------
@@ -974,7 +1021,8 @@ def main() -> int:
           "fma_sensitive_lanes": whole_net["fma_sensitive_lanes"],
           "exact2_corner_lanes": whole_net["exact2_corner_lanes"],
           "flatpack_mma_sync_ops": whole_net["mma_ops"],
-          "flatpack_3x3_depthwise_ops": whole_net["dw3_ops"]})
+          "flatpack_3x3_depthwise_ops": whole_net["dw3_ops"],
+          "megakernel_paths": whole_net["mega_paths"]})
     if any(errs.values()):
         raise AssertionError(f"kernel differs from its plain version: {errs}")
 

@@ -10,84 +10,33 @@
 // What bounds it on an H100: operations.  person_detect does 7.16M
 // multiply-adds per sample on 9,216 input bytes and 2 output bytes, so at
 // batch 8192 the int8 tensor-core peak allows 0.059 ms and HBM 0.023 ms.
-// The design keeps every intermediate tensor on chip: a persistent block
-// takes one sample at a time (b = blockIdx.x; b < B; b += gridDim.x), stages
-// its input row in shared memory, and runs op after op between two
-// ping-pong shared-memory buffers (each sized to the largest tensor of its
-// parity; 18,432 + 36,864 bytes for person_detect, so four blocks an SM),
-// with __syncthreads() between ops.  The only device-memory traffic is the
-// input row, the output row, and the plan (244 KB for person_detect),
-// which stays in L2.
+// The design keeps every intermediate tensor on chip, in the persistent
+// block loop of segment_ops.cuh (run_plan): person_detect's plan is 244 KB
+// and stays in L2.
 //
 // The 1x1 convs do 86% of the multiply-adds.  Those with a multiple of 16
-// output channels (all of person_detect's but the 2-channel head; the plan
-// marks them F_MMA) run on the int8 tensor cores: mma.sync m16n8k32, output
-// channels on M, pixels on N.  The plan holds the weights already in A
-// fragment order, so a lane loads its whole fragment with one 16-byte load
-// and a warp 512 contiguous bytes; B comes straight from the pixel rows in
-// shared memory, which are [pixel][channel], the "col" layout as they are.
-// Each weight fragment serves NT tiles of 8 pixels, so a block loads 414 KB
-// of weights a sample for person_detect's 1x1 convs, not one byte per
-// multiply-add (6.2 MB) as the __dp4a path does, whose L2 traffic bounded
-// them before (scripts/torch_flat_layers.py prints both per op).  Within
-// each 64 channels the K order is permuted (the same way in A at plan time
-// and in B here; an integer sum does not depend on it), so a lane reads 16
-// contiguous bytes of its pixel for two k-steps: one LDS.128 in place of
-// four 8-way conflicting 4-byte reads when IC >= 128.  What is left to pace
-// them is the epilogue's two conversions an output on the SM's 16-a-clock
-// conversion pipe, mma.sync's rate (well below the wgmma peak that the
-// bound assumes) and latency: 8 warps a block, 4 blocks an SM
-// (scripts/torch_flat_ablate.py times each part).
-//
-// The 3x3 depthwise convs (all 14 of person_detect's; the plan marks them
-// F_DW3) do 13.5% of the multiply-adds but make 107,136 outputs a sample, so
-// what paces them is instructions an output, not operations.  A thread
-// keeps one group of four channels for the whole op, its taps and epilogue
-// constants in registers, and takes a strip of adjacent output pixels of
-// one row: each input word it reads serves every output of the strip whose
-// window holds it, and the taps are unrolled, with bounds tested once per
-// column and row, not per tap (op_dw3, op_dw3_stem).  Other depthwise
-// convs and the other 1x1 convs over a multiple of 4 channels use __dp4a,
-// four output channels a thread, one pixel at a time; the rest is scalar
-// integer work on the CUDA cores.
+// output channels (all of person_detect's but the 2-channel head) run on
+// the int8 tensor cores (op_pw_mma), so a block loads 414 KB of weights a
+// sample for person_detect's 1x1 convs, not one byte per multiply-add (6.2
+// MB) as the __dp4a path does, whose L2 traffic bounded them before
+// (scripts/torch_flat_layers.py prints both per op).  The 3x3 depthwise
+// convs (all 14 of person_detect's) do 13.5% of the multiply-adds but make
+// 107,136 outputs a sample; they take the strips of op_dw3 and op_dw3_stem.
+// Both paths, op_dw_vec and the pool are in segment_ops.cuh, shared with
+// csrc/megakernel.cu.  The other 1x1 convs over a multiple of 4 channels
+// use __dp4a, four output channels a thread, one pixel at a time; the rest
+// is scalar integer work on the CUDA cores (this file).
 //
 // Every read stays in bounds: a tap outside the input is skipped, or reads
 // in_zp in place of the input (either way it adds (in_zp - in_zp) * w = 0,
 // as in the reference), where the TPU kernel read past the row into its
 // tile padding.  Epilogues: csrc/epilogue.cuh.
 
-#include "epilogue.cuh"
+#include "segment_ops.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int NT = 3;   // tiles of 8 pixels a warp's work item in op_pw_mma
-constexpr int NF = 32;  // int32 fields per op descriptor (kernels/flatpack.py)
-enum {
-  F_KIND, F_IH, F_IW, F_IC, F_OH, F_OW, F_OC, F_KH, F_KW, F_SR, F_SC, F_PT, F_PL, F_ZP, F_LO,
-  F_HI, F_W, F_D, F_BIAS, F_C1, F_RECIP, F_S0, F_S1, F_OUTZP, F_EXACT, F_IN, F_OUT, F_VEC, F_MMA,
-  F_DW3
-};
 enum { K_DW, K_CONV, K_PW, K_FC, K_POOL, K_SOFTMAX };
-enum { DW3_NONE, DW3_S1, DW3_S2, DW3_STEM };  // F_DW3: which 3x3 depthwise path
-constexpr int DW_STRIP = 3;    // output pixels a work item of op_dw3
-constexpr int STEM_STRIP = 4;  // output pixels a work item of op_dw3_stem
-
-struct Op {
-  const int* f;
-  const unsigned char* plan;
-  __device__ int operator[](int i) const { return __ldg(f + i); }
-  template <typename T>
-  __device__ const T* at(int field) const {
-    return reinterpret_cast<const T*>(plan + __ldg(f + field));
-  }
-};
-
-__device__ __forceinline__ int8_t requant(int acc, float b0, float c1, float lo, float hi,
-                                          int exact) {
-  const float y = mf_affine(b0, c1, acc);
-  return exact ? mf_round_away(y, lo, hi) : mf_exact2(y, lo, hi);
-}
 
 // Depthwise conv, one output a thread (the general case); output channel c
 // reads input channel c, or channel 0 when the input has fewer channels
@@ -117,83 +66,6 @@ __device__ void op_dw(const Op& op, const int8_t* src, int8_t* dst) {
       }
     }
     dst[e] = requant(acc, __ldg(b0 + c), __ldg(c1 + c), lo, hi, exact);
-  }
-}
-
-// Transpose a 4x4 block of bytes: word j of t holds tap j's four channels;
-// word c of w gets channel c's four taps, ready for __dp4a.
-__device__ __forceinline__ void transpose4(const uint32_t (&t)[4], uint32_t (&w)[4]) {
-  const uint32_t ab_lo = __byte_perm(t[0], t[1], 0x5140), ab_hi = __byte_perm(t[0], t[1], 0x7362);
-  const uint32_t cd_lo = __byte_perm(t[2], t[3], 0x5140), cd_hi = __byte_perm(t[2], t[3], 0x7362);
-  w[0] = __byte_perm(ab_lo, cd_lo, 0x5410);
-  w[1] = __byte_perm(ab_lo, cd_lo, 0x7632);
-  w[2] = __byte_perm(ab_hi, cd_hi, 0x5410);
-  w[3] = __byte_perm(ab_hi, cd_hi, 0x7632);
-}
-
-// Depthwise conv, four channels a thread (OC % 4 == 0, IC == OC or IC == 1,
-// OC/4 dividing the block): each thread keeps one group of four channels,
-// so its epilogue constants stay in registers.  Taps go four at a time: the
-// four taps' channel words are transposed into one word per channel and
-// multiplied by __dp4a against the plan's [ceil(KH*KW/4)][OC] words of
-// four taps each.  A tap outside the input reads in_zp, and d[c] =
-// -in_zp * sum of all taps' w removes it again: the sum is then
-// sum over in-bounds taps (x - in_zp) * w, exactly.
-__device__ void op_dw_vec(const Op& op, const int8_t* src, int8_t* dst) {
-  const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
-  const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
-  const int kh = op[F_KH], kw = op[F_KW], sr = op[F_SR], sc = op[F_SC];
-  const int pt = op[F_PT], pl = op[F_PL], exact = op[F_EXACT];
-  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
-  const uint32_t zpw = __byte_perm((uint32_t)op[F_ZP], 0, 0x0000);
-  const int groups = oc >> 2, g = threadIdx.x % groups, c0 = 4 * g;
-  const int taps = kh * kw, n4 = (taps + 3) >> 2;
-  const int4* w4 = op.at<int4>(F_W) + g;
-  int d[4];
-  float b0[4], c1[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    d[j] = __ldg(op.at<int>(F_D) + c0 + j);
-    b0[j] = __ldg(op.at<float>(F_BIAS) + c0 + j);
-    c1[j] = __ldg(op.at<float>(F_C1) + c0 + j);
-  }
-  const int total = oh * ow;
-  for (int p = threadIdx.x / groups; p < total; p += kThreads / groups) {
-    const int r0 = (p / ow) * sr - pt, q0 = (p % ow) * sc - pl;
-    int acc[4] = {0, 0, 0, 0};
-    int dh = 0, dw = 0;
-    for (int i = 0; i < n4; ++i) {
-      uint32_t t[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        t[j] = 0;  // a padding tap: its weight is 0
-        if (4 * i + j < taps) {
-          const int r = r0 + dh, q = q0 + dw;
-          t[j] = zpw;
-          if ((unsigned)r < (unsigned)ih && (unsigned)q < (unsigned)iw) {
-            const int pix = r * iw + q;
-            t[j] = ic == 1 ? __byte_perm((uint32_t)(uint8_t)src[pix], 0, 0x0000)
-                           : *reinterpret_cast<const uint32_t*>(src + pix * ic + c0);
-          }
-          if (++dw == kw) {
-            dw = 0;
-            ++dh;
-          }
-        }
-      }
-      uint32_t xw[4];
-      transpose4(t, xw);
-      const int4 wv = __ldg(w4 + i * groups);
-      acc[0] = __dp4a((int)xw[0], wv.x, acc[0]);
-      acc[1] = __dp4a((int)xw[1], wv.y, acc[1]);
-      acc[2] = __dp4a((int)xw[2], wv.z, acc[2]);
-      acc[3] = __dp4a((int)xw[3], wv.w, acc[3]);
-    }
-    uint32_t packed = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      packed |= (uint32_t)(uint8_t)requant(acc[j] + d[j], b0[j], c1[j], lo, hi, exact) << (8 * j);
-    *reinterpret_cast<uint32_t*>(dst + p * oc + c0) = packed;
   }
 }
 
@@ -280,322 +152,6 @@ __device__ void op_pw(const Op& op, const int8_t* src, int8_t* dst) {
   }
 }
 
-// d += A (16x32 s8, row) x B (32x8 s8, col), s32 accumulators.  Lane l =
-// 4g + t holds a = {row g k 4t..4t+3, row g+8 k 4t.., row g k 16+4t..,
-// row g+8 k 16+4t..}, b = {k 4t..4t+3 of column g, k 16+4t.. of column g},
-// d = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const int4& a, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
-// N words (4N channels from channel c) of the pixel row at src + off; a
-// word of channels >= ic, or of an absent pixel (off < 0), is 0 and not
-// read.  A row of a multiple of 4N channels is read with one vector load.
-template <int N>
-__device__ __forceinline__ void row_words(const int8_t* src, int off, int c, int ic,
-                                          uint32_t (&w)[N]) {
-  if (off >= 0 && ic % (4 * N) == 0 && c < ic) {
-    if constexpr (N == 4) {
-      const uint4 v = *reinterpret_cast<const uint4*>(src + off + c);
-      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-    } else {
-      const uint2 v = *reinterpret_cast<const uint2*>(src + off + c);
-      w[0] = v.x, w[1] = v.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      w[i] = off >= 0 && c + 4 * i < ic ? *reinterpret_cast<const uint32_t*>(src + off + c + 4 * i)
-                                        : 0u;
-  }
-}
-
-// n / d for 0 <= n < 2^16 and 1 <= d <= 2^16 (a plan's tensors have at
-// most MAX_LANES = 2^16 elements, so op_pw_mma's pixel indices, widths and
-// work items stay below that) by a multiply, not a division on the
-// conversion pipe that the epilogues load: with M = ceil(2^32 / d) = hi * 2^32 + lo
-// (hi = 1 only for d = 1), (n * M) >> 32 is exactly n / d, since
-// M * d - 2^32 < d and n < 2^16 <= 2^32 / d.
-struct Div16 {
-  unsigned lo;
-  bool hi;
-  __device__ explicit Div16(int d) : lo(0xffffffffu / (unsigned)d + 1u), hi(d == 1) {}
-  __device__ int operator()(int n) const {
-    return (int)(__umulhi((unsigned)n, lo) + (hi ? (unsigned)n : 0u));
-  }
-};
-
-// op_pw_mma's epilogue, the rounding chosen once per item, not per
-// output: a lane's accumulators hold pixels p0 + 8j + i (i = 0, 1) of
-// output channels r0 (registers 0, 1) and r0 + 8 (registers 2, 3).
-template <bool kExact>
-__device__ __forceinline__ void store_tiles(const int (&acc)[NT][4], int8_t* dst, int p0, int np,
-                                            int oc, int r0, float b0g, float b0h, float c1g,
-                                            float c1h, float lo, float hi) {
-  const auto rnd = [&](float y) {
-    return kExact ? mf_round_away(y, lo, hi) : mf_exact2(y, lo, hi);
-  };
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int p = p0 + 8 * j + i;
-      if (p < np) {
-        dst[p * oc + r0] = rnd(mf_affine(b0g, c1g, acc[j][i]));
-        dst[p * oc + r0 + 8] = rnd(mf_affine(b0h, c1h, acc[j][2 + i]));
-      }
-    }
-  }
-}
-
-// 1x1 conv (any stride) with OC % 16 == 0 and IC % 4 == 0 on the tensor
-// cores: the raw int8 dot plus d[f] = -in_zp * colsum, as op_pw, then the
-// same epilogue, so the bits are op_pw's.  A warp's work item is one m-tile
-// of 16 output channels and NT tiles of 8 output pixels; items stride by
-// warp.  K goes in steps of 32 channels, each an "A unit" of the plan
-// ([OC/16][ceil(IC/32)][32 lanes][16 bytes]); while 33 or more channels
-// remain, two units cover 64 channels kb.., and lane t reads channels
-// kb+16t..kb+16t+15 of its pixel (b0, b1 of the first unit, then of the
-// second); else one unit covers the last <= 32 and lane t reads channels
-// kb+8t..kb+8t+7.  The plan puts the weights of the same channels in the
-// same lanes.  Every loop is warp-uniform, as mma.sync needs.
-__device__ void op_pw_mma(const Op& op, const int8_t* src, int8_t* dst) {
-  const int iw = op[F_IW], ic = op[F_IC];
-  const int ow = op[F_OW], oc = op[F_OC], np = op[F_OH] * ow;
-  const int sr = op[F_SR], sc = op[F_SC], exact = op[F_EXACT];
-  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int units = (ic + 31) >> 5;
-  const int chunks = (np + 8 * NT - 1) / (8 * NT);
-  const int4* frag = op.at<int4>(F_W) + lane;
-  const int* d = op.at<int>(F_D);
-  const float* b0 = op.at<float>(F_BIAS);
-  const float* c1 = op.at<float>(F_C1);
-  const Div16 by_chunks(chunks), by_ow(ow);
-  for (int item = threadIdx.x >> 5; item < (oc >> 4) * chunks; item += kThreads / 32) {
-    const int m = by_chunks(item), n0 = (item - m * chunks) * (8 * NT);
-    const int r0 = 16 * m + g;  // this lane's output channels: r0 and r0 + 8
-    int off[NT];  // input row offset of pixel n0 + 8j + g; -1 past the end
-    int acc[NT][4];
-    const int d0 = __ldg(d + r0), d1 = __ldg(d + r0 + 8);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int p = n0 + 8 * j + g, row = by_ow(p);
-      off[j] = p < np ? (row * sr * iw + (p - row * ow) * sc) * ic : -1;
-      acc[j][0] = acc[j][1] = d0;
-      acc[j][2] = acc[j][3] = d1;
-    }
-    // Every tile's B words are read before the MMAs, and the MMAs go tile
-    // after tile, so the reads overlap and so do the MMA chains.  A tile
-    // past the pixels reads zeros (off < 0) and its MMAs change nothing
-    // that is stored.
-    const int4* a = frag + m * units * 32;
-    for (int kb = 0; kb < ic; kb += 64) {
-      if (ic - kb > 32) {
-        const int4 a0 = __ldg(a), a1 = __ldg(a + 32);
-        a += 64;
-        uint32_t w[NT][4];
-#pragma unroll
-        for (int j = 0; j < NT; ++j) row_words<4>(src, off[j], kb + 16 * t, ic, w[j]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_s8(acc[j], a0, w[j][0], w[j][1]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_s8(acc[j], a1, w[j][2], w[j][3]);
-      } else {
-        const int4 a0 = __ldg(a);
-        a += 32;
-        uint32_t w[NT][2];
-#pragma unroll
-        for (int j = 0; j < NT; ++j) row_words<2>(src, off[j], kb + 8 * t, ic, w[j]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_s8(acc[j], a0, w[j][0], w[j][1]);
-      }
-    }
-    const float b0g = __ldg(b0 + r0), b0h = __ldg(b0 + r0 + 8);
-    const float c1g = __ldg(c1 + r0), c1h = __ldg(c1 + r0 + 8);
-    if (exact) store_tiles<true>(acc, dst, n0 + 2 * t, np, oc, r0, b0g, b0h, c1g, c1h, lo, hi);
-    else store_tiles<false>(acc, dst, n0 + 2 * t, np, oc, r0, b0g, b0h, c1g, c1h, lo, hi);
-  }
-}
-
-// A 3x3 depthwise op's constants for channel group g (channels 4g..4g+3),
-// loaded once per op: w[dh][j] = channel 4g+j's taps (dh, 0), (dh, 1),
-// (dh, 2) as one word, low byte first, high byte 0 (the plan's [3][C]
-// words); d = -in_zp * the sum of all nine taps; bias0; c1.
-struct Dw3Consts {
-  int w[3][4], d[4];
-  float b0[4], c1[4];
-  __device__ Dw3Consts(const Op& op, int g, int groups) {
-#pragma unroll
-    for (int dh = 0; dh < 3; ++dh) {
-      const int4 v = __ldg(op.at<int4>(F_W) + dh * groups + g);
-      w[dh][0] = v.x, w[dh][1] = v.y, w[dh][2] = v.z, w[dh][3] = v.w;
-    }
-    const int4 dv = __ldg(op.at<int4>(F_D) + g);
-    const float4 bv = __ldg(op.at<float4>(F_BIAS) + g), cv = __ldg(op.at<float4>(F_C1) + g);
-    d[0] = dv.x, d[1] = dv.y, d[2] = dv.z, d[3] = dv.w;
-    b0[0] = bv.x, b0[1] = bv.y, b0[2] = bv.z, b0[3] = bv.w;
-    c1[0] = cv.x, c1[1] = cv.y, c1[2] = cv.z, c1[3] = cv.w;
-  }
-};
-
-// A strip's epilogue: output pixel o of the strip (o < n) is the word of
-// channels 4g..4g+3 at dst + o * c; the rounding is chosen once per item.
-template <bool kExact, int S>
-__device__ __forceinline__ void store_strip(const int (&acc)[S][4], int8_t* dst, int n, int c,
-                                            const Dw3Consts& k, float lo, float hi) {
-  const auto rnd = [&](float y) {
-    return kExact ? mf_round_away(y, lo, hi) : mf_exact2(y, lo, hi);
-  };
-#pragma unroll
-  for (int o = 0; o < S; ++o) {
-    if (o < n) {
-      uint32_t packed = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        packed |= (uint32_t)(uint8_t)rnd(mf_affine(k.b0[j], k.c1[j], acc[o][j])) << (8 * j);
-      *reinterpret_cast<uint32_t*>(dst + o * c) = packed;
-    }
-  }
-}
-
-// 3x3 depthwise conv at stride SD (1 or 2) over C = IC = OC channels, C a
-// multiple of 4 whose groups of 4 divide the block (F_DW3 = DW3_S1,
-// DW3_S2).  A work item is the thread's group of four channels (fixed for
-// the op, so its constants stay in registers) by a strip of DW_STRIP
-// adjacent output pixels of one row; items go channel group fastest, so
-// the lanes of a warp read neighbouring words, and the odd strip length
-// puts the strips of one row on distinct banks.  Per row of the window the
-// strip reads NX words (the four channels of one input pixel; a word
-// outside the input is in_zp, which d removes again, as in op_dw_vec),
-// transposes each pair of columns into one half-word per channel, and
-// joins neighbouring pairs into a word of four consecutive columns per
-// channel.  At stride 1 the word of columns q..q+3 serves output q with the
-// taps (w0, w1, w2, 0) and output q + 1 with (0, w0, w1, w2); at stride 2
-// word i serves output i.  The sums are op_dw_vec's, so are the bits.
-template <int SD>
-__device__ void op_dw3(const Op& op, const int8_t* src, int8_t* dst) {
-  constexpr int S = DW_STRIP;
-  constexpr int NX = SD == 1 ? S + 2 : 2 * S + 1;  // input columns of a strip
-  constexpr int NP = (NX + 1) / 2;                 // their pairs
-  const int ih = op[F_IH], iw = op[F_IW], c = op[F_OC], oh = op[F_OH], ow = op[F_OW];
-  const int pt = op[F_PT], pl = op[F_PL], exact = op[F_EXACT];
-  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
-  const uint32_t zpw = __byte_perm((uint32_t)op[F_ZP], 0, 0x0000);
-  const int groups = c >> 2, g = threadIdx.x % groups;
-  const Dw3Consts k(op, g, groups);
-  const int ns = (ow + S - 1) / S;  // strips a row
-  const Div16 by_ns(ns);
-  const int8_t* sg = src + 4 * g;
-  for (int it = threadIdx.x / groups; it < oh * ns; it += kThreads / groups) {
-    const int oy = by_ns(it), ox = (it - oy * ns) * S;
-    const int r0 = oy * SD - pt, q0 = ox * SD - pl;
-    unsigned cols = 0;  // bit i: input column q0 + i lies inside the row
-#pragma unroll
-    for (int i = 0; i < NX; ++i) cols |= (unsigned)((unsigned)(q0 + i) < (unsigned)iw) << i;
-    int acc[S][4];
-#pragma unroll
-    for (int o = 0; o < S; ++o)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[o][j] = k.d[j];
-#pragma unroll
-    for (int dh = 0; dh < 3; ++dh) {
-      const int r = r0 + dh;
-      const unsigned ok = (unsigned)r < (unsigned)ih ? cols : 0u;
-      const int off = (r * iw + q0) * c;
-      uint32_t x[NX];
-#pragma unroll
-      for (int i = 0; i < NX; ++i)
-        x[i] = (ok >> i) & 1u ? *reinterpret_cast<const uint32_t*>(sg + off + i * c) : zpw;
-      // pair i: channels (0, 1) and (2, 3) of columns 2i, 2i+1; a last
-      // column alone is paired with itself (its partner's tap weight is 0)
-      uint32_t p01[NP], p23[NP];
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        const uint32_t b = x[2 * i + 1 < NX ? 2 * i + 1 : 2 * i];
-        p01[i] = __byte_perm(x[2 * i], b, 0x5140);
-        p23[i] = __byte_perm(x[2 * i], b, 0x7362);
-      }
-#pragma unroll
-      for (int i = 0; i + 1 < NP; ++i) {
-        // channel j's columns 2i..2i+3
-        const uint32_t xw[4] = {
-            __byte_perm(p01[i], p01[i + 1], 0x5410), __byte_perm(p01[i], p01[i + 1], 0x7632),
-            __byte_perm(p23[i], p23[i + 1], 0x5410), __byte_perm(p23[i], p23[i + 1], 0x7632)};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (SD == 1) {
-            if (2 * i < S) acc[2 * i][j] = __dp4a((int)xw[j], k.w[dh][j], acc[2 * i][j]);
-            if (2 * i + 1 < S)
-              acc[2 * i + 1][j] =
-                  __dp4a((int)xw[j], (int)((unsigned)k.w[dh][j] << 8), acc[2 * i + 1][j]);
-          } else if (i < S) {
-            acc[i][j] = __dp4a((int)xw[j], k.w[dh][j], acc[i][j]);
-          }
-        }
-      }
-    }
-    int8_t* out = dst + (oy * ow + ox) * c + 4 * g;
-    if (exact) store_strip<true>(acc, out, ow - ox, c, k, lo, hi);
-    else store_strip<false>(acc, out, ow - ox, c, k, lo, hi);
-  }
-}
-
-// The 3x3 stride-2 depth-multiplier stem: one input channel broadcast to C
-// = OC output channels (F_DW3 = DW3_STEM; the plan takes it where the left
-// padding is 1 and the input row a multiple of 4 bytes).  A work item is
-// the thread's group of four channels by STEM_STRIP output pixels 4s..4s+3
-// of one row, whose windows cover bytes 8s-1 .. 8s+7 of each input row:
-// three aligned words (8s-4.., 8s.., 8s+4..; a word outside the input is
-// in_zp).  Every channel reads the same byte, so the word of output 4s+j's
-// columns, bytes 8s-1+2j .. 8s+2+2j (the last, of weight 0, any byte),
-// is one byte permutation and no transpose, and serves four __dp4a.
-__device__ void op_dw3_stem(const Op& op, const int8_t* src, int8_t* dst) {
-  constexpr int S = STEM_STRIP;
-  const int ih = op[F_IH], iw = op[F_IW], c = op[F_OC], oh = op[F_OH], ow = op[F_OW];
-  const int pt = op[F_PT], exact = op[F_EXACT];
-  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
-  const uint32_t zpw = __byte_perm((uint32_t)op[F_ZP], 0, 0x0000);
-  const int groups = c >> 2, g = threadIdx.x % groups;
-  const Dw3Consts k(op, g, groups);
-  const int ns = (ow + S - 1) / S;
-  const Div16 by_ns(ns);
-  for (int it = threadIdx.x / groups; it < oh * ns; it += kThreads / groups) {
-    const int oy = by_ns(it), ox = (it - oy * ns) * S;
-    const int r0 = 2 * oy - pt, b = 2 * ox - 4;
-    unsigned cols = 0;  // bit m: word m, columns b+4m .. b+4m+3, lies inside the row
-#pragma unroll
-    for (int m = 0; m < 3; ++m) cols |= (unsigned)((unsigned)(b + 4 * m) < (unsigned)iw) << m;
-    int acc[S][4];
-#pragma unroll
-    for (int o = 0; o < S; ++o)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[o][j] = k.d[j];
-#pragma unroll
-    for (int dh = 0; dh < 3; ++dh) {
-      const int r = r0 + dh;
-      const unsigned ok = (unsigned)r < (unsigned)ih ? cols : 0u;
-      const int off = r * iw + b;
-      uint32_t w[3];
-#pragma unroll
-      for (int m = 0; m < 3; ++m)
-        w[m] = (ok >> m) & 1u ? *reinterpret_cast<const uint32_t*>(src + off + 4 * m) : zpw;
-      const uint32_t xw[S] = {__byte_perm(w[0], w[1], 0x6543), __byte_perm(w[1], w[2], 0x4321),
-                              __byte_perm(w[1], w[2], 0x6543), w[2] >> 8};
-#pragma unroll
-      for (int o = 0; o < S; ++o)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[o][j] = __dp4a((int)xw[o], k.w[dh][j], acc[o][j]);
-    }
-    int8_t* out = dst + (oy * ow + ox) * c + 4 * g;
-    if (exact) store_strip<true>(acc, out, ow - ox, c, k, lo, hi);
-    else store_strip<false>(acc, out, ow - ox, c, k, lo, hi);
-  }
-}
-
 // FullyConnected: one warp an output, lanes over K, then a shuffle sum
 // (integer, so the order does not matter).  Weights are [N][K].
 __device__ void op_fc(const Op& op, const int8_t* src, int8_t* dst) {
@@ -612,34 +168,6 @@ __device__ void op_fc(const Op& op, const int8_t* src, int8_t* dst) {
 #pragma unroll
     for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
     if (lane == 0) dst[n] = requant(acc, __ldg(b0 + n), __ldg(c1 + n), lo, hi, exact);
-  }
-}
-
-// AveragePool: in-bounds sum (true zeros outside), then
-// roundf(c0 * (recip[p] * f32(sum)) + c1), clamped.
-__device__ void op_pool(const Op& op, const int8_t* src, int8_t* dst) {
-  const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
-  const int oh = op[F_OH], ow = op[F_OW];
-  const int kh = op[F_KH], kw = op[F_KW], sr = op[F_SR], sc = op[F_SC];
-  const int pt = op[F_PT], pl = op[F_PL];
-  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
-  const float c0 = __int_as_float(op[F_S0]), c1 = __int_as_float(op[F_S1]);
-  const float* recip = op.at<float>(F_RECIP);
-  const int total = oh * ow * ic;
-  for (int e = threadIdx.x; e < total; e += kThreads) {
-    const int ch = e % ic, p = e / ic;
-    const int r0 = (p / ow) * sr - pt, q0 = (p % ow) * sc - pl;
-    int s = 0;
-    for (int dh = 0; dh < kh; ++dh) {
-      const int r = r0 + dh;
-      if (r < 0 || r >= ih) continue;
-      for (int dw = 0; dw < kw; ++dw) {
-        const int q = q0 + dw;
-        if (q >= 0 && q < iw) s += src[(r * iw + q) * ic + ch];
-      }
-    }
-    const float t = __fmul_rn(__ldg(recip + p), __int2float_rn(s));
-    dst[e] = mf_round_away(__fadd_rn(__fmul_rn(c0, t), c1), lo, hi);
   }
 }
 
@@ -664,57 +192,29 @@ __global__ void __launch_bounds__(kThreads, 4)
     flat_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, long long B,
                 const unsigned char* __restrict__ plan, int n_ops, int in_elems, int out_elems,
                 int smem_a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* buf_a = reinterpret_cast<int8_t*>(smem);
-  int8_t* buf_b = reinterpret_cast<int8_t*>(smem + smem_a);
-  const int* desc = reinterpret_cast<const int*>(plan);
-  const bool vec_in = (in_elems & 15) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const bool vec_out = (out_elems & 15) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
-    const int8_t* xr = x + b * in_elems;
-    if (vec_in) {
-      for (int i = threadIdx.x; i < (in_elems >> 4); i += kThreads)
-        reinterpret_cast<int4*>(buf_b)[i] = __ldg(reinterpret_cast<const int4*>(xr) + i);
-    } else {
-      for (int i = threadIdx.x; i < in_elems; i += kThreads) buf_b[i] = __ldg(xr + i);
-    }
-    __syncthreads();
-    const int8_t* src = buf_b;
-    for (int o = 0; o < n_ops; ++o) {
-      const Op op{desc + o * NF, plan};
-      int8_t* dst = (o & 1) ? buf_b : buf_a;
-      switch (op[F_KIND]) {
-        case K_DW:
-          switch (op[F_DW3]) {
-            case DW3_S1: op_dw3<1>(op, src, dst); break;
-            case DW3_S2: op_dw3<2>(op, src, dst); break;
-            case DW3_STEM: op_dw3_stem(op, src, dst); break;
-            default:
-              if (op[F_VEC]) op_dw_vec(op, src, dst);
-              else op_dw(op, src, dst);
-          }
-          break;
-        case K_CONV: op_conv(op, src, dst); break;
-        case K_PW:
-          if (op[F_MMA]) op_pw_mma(op, src, dst);
-          else op_pw(op, src, dst);
-          break;
-        case K_FC: op_fc(op, src, dst); break;
-        case K_POOL: op_pool(op, src, dst); break;
-        default: op_softmax(op, src, dst); break;
-      }
-      __syncthreads();
-      src = dst;
-    }
-    int8_t* orow = out + b * out_elems;
-    if (vec_out) {
-      for (int i = threadIdx.x; i < (out_elems >> 4); i += kThreads)
-        reinterpret_cast<int4*>(orow)[i] = reinterpret_cast<const int4*>(src)[i];
-    } else {
-      for (int i = threadIdx.x; i < out_elems; i += kThreads) orow[i] = src[i];
-    }
-    __syncthreads();  // the next sample's input overwrites buffer B
-  }
+  run_plan(x, out, B, plan, n_ops, in_elems, out_elems, smem_a,
+           [](const Op& op, const int8_t* src, int8_t* dst) {
+             switch (op[F_KIND]) {
+               case K_DW:
+                 switch (op[F_DW3]) {
+                   case DW3_S1: op_dw3<1>(op, src, dst); break;
+                   case DW3_S2: op_dw3<2>(op, src, dst); break;
+                   case DW3_STEM: op_dw3_stem(op, src, dst); break;
+                   default:
+                     if (op[F_VEC]) op_dw_vec(op, src, dst);
+                     else op_dw(op, src, dst);
+                 }
+                 break;
+               case K_CONV: op_conv(op, src, dst); break;
+               case K_PW:
+                 if (op[F_MMA]) op_pw_mma(op, src, dst);
+                 else op_pw(op, src, dst);
+                 break;
+               case K_FC: op_fc(op, src, dst); break;
+               case K_POOL: op_pool(op, src, dst); break;
+               default: op_softmax(op, src, dst); break;
+             }
+           });
 }
 
 }  // namespace
@@ -726,20 +226,6 @@ __global__ void __launch_bounds__(kThreads, 4)
 extern "C" int mf_flatpack(const void* x, void* out, long long B, const void* plan, int n_ops,
                            int in_elems, int out_elems, int smem_a, int smem_b, void* stream) {
   if (B <= 0 || n_ops <= 0 || in_elems <= 0 || out_elems <= 0) return (int)cudaErrorInvalidValue;
-  const int smem = smem_a + smem_b;
-  cudaError_t err =
-      cudaFuncSetAttribute(flat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flat_kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long grid = B < (long long)per_sm * sms ? B : (long long)per_sm * sms;
-  flat_kernel<<<(unsigned)grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<int8_t*>(out), B,
-      static_cast<const unsigned char*>(plan), n_ops, in_elems, out_elems, smem_a);
-  return (int)cudaGetLastError();
+  return launch_plan(flat_kernel, x, out, B, plan, n_ops, in_elems, out_elems, smem_a, smem_b,
+                     stream);
 }

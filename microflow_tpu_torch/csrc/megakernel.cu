@@ -4,53 +4,47 @@
 // (reached through build_fused_forward): one segment of consecutive
 // depthwise conv, Conv2D, FullyConnected, AveragePool and int8 Quantize
 // layers in one launch, int8 [B, in_elems] -> int8 [B, out_elems].  The plan
-// (op descriptors, then each op's constants) is one device buffer made once
-// per model by kernels/megakernel.py::pack_segment.
+// (op descriptors in the flat kernel's layout, then each op's constants) is
+// one device buffer made once per model by kernels/megakernel.py::pack_segment.
 //
 // What bounds it on an H100: operations.  person_detect's fused segment
 // (layers 0-28) does 7.16M multiply-adds per sample on 9,216 input bytes and
 // 2 output bytes, so at batch 8192 the int8 tensor-core peak allows
 // 0.059 ms and HBM 0.023 ms.  The design keeps every intermediate tensor on
-// chip, as csrc/flatpack.cu does: a persistent block takes one sample at a
-// time, stages its input row in shared memory and runs op after op between
-// two ping-pong shared-memory buffers (each sized to the largest tensor of
-// its parity; 36,864 + 18,432 bytes for person_detect), with
-// __syncthreads() between ops.  Where the TPU kernel swept stride-1 windows
-// and decimated, each thread here computes its strided output directly.
-// This first version is simple: scalar int32 multiply-adds, one output a
-// thread, except the 1x1 convs over a multiple of 4 channels (86% of
-// person_detect's multiply-adds), which take __dp4a.  No tensor cores.
+// chip, in the persistent block loop that csrc/flatpack.cu uses
+// (segment_ops.cuh: run_plan; 36,864 + 18,432 bytes of shared memory for
+// person_detect, four blocks an SM).  Where the TPU kernel swept stride-1
+// windows and decimated, each thread here computes its strided output
+// directly.
+//
+// The ops of the largest classes take the flat kernel's paths
+// (segment_ops.cuh), as the plan marks them: the 1x1 convs with a multiple
+// of 16 output channels and no weight zero point on the int8 tensor cores
+// (F_MMA: op_pw_mma; person_detect's 13 wide ones), the 3x3 depthwise
+// convs at stride 1 or 2 and the 3x3/s2 stem from one channel in strips
+// (F_DW3: op_dw3, op_dw3_stem; all 14 of person_detect's), and other
+// depthwise convs over a multiple of 4 channels four channels a thread
+// (F_VEC: op_dw_vec; speech's 10x8 stem), each where its centred taps
+// w - w_zp fit int8.  The rest is this file's: a depthwise conv one output
+// a thread with int32 taps, any Conv2D, a 1x1 conv over a multiple of 4
+// channels by __dp4a with a weight zero point, FullyConnected and Quantize.
 //
 // Every weight may carry a zero point (per channel for the convs), so the
 // accumulator is sum over in-bounds taps (x - in_zp) * (w - w_zp), exact in
-// int32; a tap outside the input is skipped, which equals the reference's
-// zero-point padding.  Every requant is round-half-away (roundf), as the JAX
-// kernel's lax.round(..., AWAY_FROM_ZERO), on y = bias0 + c1 * f32(q) with
-// the multiply and the add rounded apart (csrc/epilogue.cuh, -fmad=false).
+// int32; a tap outside the input is skipped, or reads in_zp (the shared
+// paths), which equals the reference's zero-point padding.  Every requant
+// is round-half-away (roundf), as the JAX kernel's lax.round(...,
+// AWAY_FROM_ZERO), on y = bias0 + c1 * f32(q) with the multiply and the add
+// rounded apart (csrc/epilogue.cuh, -fmad=false); the plan sets F_EXACT on
+// every op, so the shared paths round so too.
 
-#include "epilogue.cuh"
+#include "segment_ops.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int NF = 32;  // int32 fields per op descriptor (kernels/megakernel.py)
-enum {
-  F_KIND, F_IH, F_IW, F_IC, F_OH, F_OW, F_OC, F_KH, F_KW, F_SR, F_SC, F_PT, F_PL, F_ZP, F_LO,
-  F_HI, F_W, F_WZP, F_D, F_BIAS, F_C1, F_RECIP, F_S0, F_S1, F_OUTZP, F_IN, F_OUT
-};
 enum { K_DW, K_CONV, K_PW, K_FC, K_POOL, K_QUANTIZE };
 
-struct Op {
-  const int* f;
-  const unsigned char* plan;
-  __device__ int operator[](int i) const { return __ldg(f + i); }
-  template <typename T>
-  __device__ const T* at(int field) const {
-    return reinterpret_cast<const T*>(plan + __ldg(f + field));
-  }
-};
-
-__device__ __forceinline__ int8_t requant(int acc, float b0, float c1, float lo, float hi) {
+__device__ __forceinline__ int8_t requant_away(int acc, float b0, float c1, float lo, float hi) {
   return mf_round_away(mf_affine(b0, c1, acc), lo, hi);
 }
 
@@ -82,7 +76,7 @@ __device__ void op_dw(const Op& op, const int8_t* src, int8_t* dst) {
         acc += ((int)src[(r * iw + q) * ic + ci] - zp) * __ldg(w + (dh * kw + dw) * oc + c);
       }
     }
-    dst[e] = requant(acc, __ldg(b0 + c), __ldg(c1 + c), lo, hi);
+    dst[e] = requant_away(acc, __ldg(b0 + c), __ldg(c1 + c), lo, hi);
   }
 }
 
@@ -115,7 +109,7 @@ __device__ void op_conv(const Op& op, const int8_t* src, int8_t* dst) {
         for (int ci = 0; ci < ic; ++ci) acc += ((int)xs[ci] - zp) * ((int)__ldg(ws + ci) - wz);
       }
     }
-    dst[e] = requant(acc, __ldg(b0 + f), __ldg(c1 + f), lo, hi);
+    dst[e] = requant_away(acc, __ldg(b0 + f), __ldg(c1 + f), lo, hi);
   }
 }
 
@@ -145,7 +139,7 @@ __device__ void op_pw(const Op& op, const int8_t* src, int8_t* dst) {
       sum = __dp4a(xv, 0x01010101, sum);
     }
     const int q = dot - __ldg(wzp + f) * sum + __ldg(d + f);
-    dst[e] = requant(q, __ldg(b0 + f), __ldg(c1 + f), lo, hi);
+    dst[e] = requant_away(q, __ldg(b0 + f), __ldg(c1 + f), lo, hi);
   }
 }
 
@@ -166,35 +160,8 @@ __device__ void op_fc(const Op& op, const int8_t* src, int8_t* dst) {
     for (int k = lane; k < K; k += 32) acc += (int)src[k] * ((int)__ldg(wr + k) - wz);
 #pragma unroll
     for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-    if (lane == 0) dst[n] = requant(acc + __ldg(off + n), __ldg(b0 + n), __ldg(c1 + n), lo, hi);
-  }
-}
-
-// AveragePool: in-bounds sum (true zeros outside), then
-// roundf(c0 * (recip[p] * f32(sum)) + c1), clamped.
-__device__ void op_pool(const Op& op, const int8_t* src, int8_t* dst) {
-  const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
-  const int oh = op[F_OH], ow = op[F_OW];
-  const int kh = op[F_KH], kw = op[F_KW], sr = op[F_SR], sc = op[F_SC];
-  const int pt = op[F_PT], pl = op[F_PL];
-  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
-  const float c0 = __int_as_float(op[F_S0]), c1 = __int_as_float(op[F_S1]);
-  const float* recip = op.at<float>(F_RECIP);
-  const int total = oh * ow * ic;
-  for (int e = threadIdx.x; e < total; e += kThreads) {
-    const int ch = e % ic, p = e / ic;
-    const int r0 = (p / ow) * sr - pt, q0 = (p % ow) * sc - pl;
-    int s = 0;
-    for (int dh = 0; dh < kh; ++dh) {
-      const int r = r0 + dh;
-      if (r < 0 || r >= ih) continue;
-      for (int dw = 0; dw < kw; ++dw) {
-        const int q = q0 + dw;
-        if (q >= 0 && q < iw) s += src[(r * iw + q) * ic + ch];
-      }
-    }
-    const float t = __fmul_rn(__ldg(recip + p), __int2float_rn(s));
-    dst[e] = mf_round_away(__fadd_rn(__fmul_rn(c0, t), c1), lo, hi);
+    if (lane == 0)
+      dst[n] = requant_away(acc + __ldg(off + n), __ldg(b0 + n), __ldg(c1 + n), lo, hi);
   }
 }
 
@@ -210,62 +177,102 @@ __device__ void op_quantize(const Op& op, const int8_t* src, int8_t* dst) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
     segment_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, long long B,
                    const unsigned char* __restrict__ plan, int n_ops, int in_elems,
                    int out_elems, int smem_a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* buf_a = reinterpret_cast<int8_t*>(smem);
-  int8_t* buf_b = reinterpret_cast<int8_t*>(smem + smem_a);
-  const int* desc = reinterpret_cast<const int*>(plan);
-  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
-    const int8_t* xr = x + b * in_elems;
-    for (int i = threadIdx.x; i < in_elems; i += kThreads) buf_b[i] = __ldg(xr + i);
-    __syncthreads();
-    const int8_t* src = buf_b;
-    for (int o = 0; o < n_ops; ++o) {
-      const Op op{desc + o * NF, plan};
-      int8_t* dst = (o & 1) ? buf_b : buf_a;
-      switch (op[F_KIND]) {
-        case K_DW: op_dw(op, src, dst); break;
-        case K_CONV: op_conv(op, src, dst); break;
-        case K_PW: op_pw(op, src, dst); break;
-        case K_FC: op_fc(op, src, dst); break;
-        case K_POOL: op_pool(op, src, dst); break;
-        default: op_quantize(op, src, dst); break;
-      }
-      __syncthreads();
-      src = dst;
+  run_plan(x, out, B, plan, n_ops, in_elems, out_elems, smem_a,
+           [](const Op& op, const int8_t* src, int8_t* dst) {
+             switch (op[F_KIND]) {
+               case K_DW:
+                 switch (op[F_DW3]) {
+                   case DW3_S1: op_dw3<1>(op, src, dst); break;
+                   case DW3_S2: op_dw3<2>(op, src, dst); break;
+                   case DW3_STEM: op_dw3_stem(op, src, dst); break;
+                   default:
+                     if (op[F_VEC]) op_dw_vec(op, src, dst);
+                     else op_dw(op, src, dst);
+                 }
+                 break;
+               case K_CONV: op_conv(op, src, dst); break;
+               case K_PW:
+                 if (op[F_MMA]) op_pw_mma(op, src, dst);
+                 else op_pw(op, src, dst);
+                 break;
+               case K_FC: op_fc(op, src, dst); break;
+               case K_POOL: op_pool(op, src, dst); break;
+               default: op_quantize(op, src, dst); break;
+             }
+           });
+}
+
+// What the kernel's reads assume of a plan, checked on the host copy of
+// its descriptors: every op reads and writes inside its shared-memory
+// buffer (16-byte multiples) and takes the tensor the op before it wrote;
+// a 1x1 conv reads whole words of pixels inside its input; the shared
+// paths have the kinds, windows and channel multiples they were planned
+// for, tensors of at most MAX_LANES elements (F_MMA, F_DW3), and 16-byte
+// aligned constants for their vector loads.
+bool plan_ok(const int* desc, const void* plan, int n_ops, int in_elems, int out_elems,
+             int smem_a, int smem_b) {
+  if (smem_a % 16 || smem_b % 16 || reinterpret_cast<uintptr_t>(plan) % 16 || in_elems > smem_b)
+    return false;
+  long long cur = in_elems;
+  for (int o = 0; o < n_ops; ++o) {
+    const int* f = desc + o * NF;
+    const int kind = f[F_KIND], c = f[F_OC], ic = f[F_IC];
+    const long long n_in = f[F_IN], n_out = f[F_OUT];
+    if (kind < K_DW || kind > K_QUANTIZE || n_in != cur || n_out <= 0 ||
+        n_out > ((o & 1) ? smem_b : smem_a))
+      return false;
+    cur = n_out;
+    if (kind == K_FC) continue;
+    if (kind == K_QUANTIZE) {
+      if (n_out != n_in) return false;
+      continue;
     }
-    int8_t* orow = out + b * out_elems;
-    for (int i = threadIdx.x; i < out_elems; i += kThreads) orow[i] = src[i];
-    __syncthreads();  // the next sample's input overwrites buffer B
+    if ((long long)f[F_IH] * f[F_IW] * ic != n_in || (long long)f[F_OH] * f[F_OW] * c != n_out)
+      return false;
+    if (kind == K_POOL && c != ic) return false;
+    if (kind == K_PW && (ic % 4 || (f[F_OH] - 1) * f[F_SR] >= f[F_IH] ||
+                         (f[F_OW] - 1) * f[F_SC] >= f[F_IW]))
+      return false;
+    const int path = f[F_DW3], vec = f[F_VEC], mma = f[F_MMA];
+    if (!path && !vec && !mma) continue;
+    if (f[F_W] % 16 || f[F_D] % 16 || f[F_BIAS] % 16 || f[F_C1] % 16) return false;
+    if (mma) {
+      if (kind != K_PW || c % 16 || n_out > MAX_LANES || path || vec) return false;
+      continue;
+    }
+    const bool groups = c > 0 && c % 4 == 0 && kThreads % (c / 4) == 0;
+    if (kind != K_DW || !groups || (path && vec)) return false;
+    if (vec && ic != 1 && ic != c) return false;
+    if (!path) continue;
+    const int s = f[F_SR];
+    if (n_out > MAX_LANES || f[F_KH] != 3 || f[F_KW] != 3 || f[F_SC] != s) return false;
+    if (path == DW3_S1 || path == DW3_S2) {
+      if (ic != c || s != (path == DW3_S1 ? 1 : 2)) return false;
+    } else if (path != DW3_STEM || ic != 1 || s != 2 || f[F_PL] != 1 || f[F_IW] % 4) {
+      return false;
+    }
   }
+  return cur == out_elems;
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  plan: the device buffer of
-// kernels/megakernel.py::pack_segment; smem_a/smem_b: its two buffer sizes.
-// Returns the CUDA error code (0 on success); a launch the card refuses
-// returns its error here.
-extern "C" int mf_megakernel(const void* x, void* out, long long B, const void* plan, int n_ops,
-                             int in_elems, int out_elems, int smem_a, int smem_b, void* stream) {
-  if (B <= 0 || n_ops <= 0 || in_elems <= 0 || out_elems <= 0) return (int)cudaErrorInvalidValue;
-  const int smem = smem_a + smem_b;
-  cudaError_t err =
-      cudaFuncSetAttribute(segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, segment_kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long grid = B < (long long)per_sm * sms ? B : (long long)per_sm * sms;
-  segment_kernel<<<(unsigned)grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<int8_t*>(out), B,
-      static_cast<const unsigned char*>(plan), n_ops, in_elems, out_elems, smem_a);
-  return (int)cudaGetLastError();
+// kernels/megakernel.py::pack_segment; desc: a host copy of its first
+// n_ops descriptors, which the entry point checks (plan_ok) and refuses the
+// launch with cudaErrorInvalidValue if a read would not hold;
+// smem_a/smem_b: its two buffer sizes.  Returns the CUDA error code (0 on
+// success); a launch the card refuses returns its error here.
+extern "C" int mf_megakernel(const void* x, void* out, long long B, const void* plan,
+                             const int* desc, int n_ops, int in_elems, int out_elems, int smem_a,
+                             int smem_b, void* stream) {
+  if (B <= 0 || n_ops <= 0 || in_elems <= 0 || out_elems <= 0 ||
+      !plan_ok(desc, plan, n_ops, in_elems, out_elems, smem_a, smem_b))
+    return (int)cudaErrorInvalidValue;
+  return launch_plan(segment_kernel, x, out, B, plan, n_ops, in_elems, out_elems, smem_a, smem_b,
+                     stream);
 }

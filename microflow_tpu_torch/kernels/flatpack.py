@@ -73,17 +73,19 @@ MAX_LANES = 65536
 SMEM_BYTES = 232448
 REQUANT_MODES = ("exact2", "exact")
 
-# Op kinds and descriptor layout; csrc/flatpack.cu reads the same numbers.
+# Op kinds and descriptor layout; csrc/flatpack.cu and csrc/segment_ops.cuh
+# read the same numbers.  The megakernel's plan (kernels/megakernel.py) writes
+# the same layout; F_WZP, its per-channel weight zero points, is its own.
 KINDS = {"dw": 0, "conv": 1, "pw": 2, "fc": 3, "pool": 4, "softmax": 5}
 NF = 32  # int32 fields per op descriptor
 (F_KIND, F_IH, F_IW, F_IC, F_OH, F_OW, F_OC, F_KH, F_KW, F_SR, F_SC, F_PT, F_PL, F_ZP, F_LO, F_HI,
  F_W, F_D, F_BIAS, F_C1, F_RECIP, F_S0, F_S1, F_OUTZP, F_EXACT, F_IN, F_OUT, F_VEC,
- F_MMA, F_DW3) = range(30)
-# F_DW3: the 3x3 depthwise path of an op (csrc/flatpack.cu's op_dw3<1>,
+ F_MMA, F_DW3, F_WZP) = range(31)
+# F_DW3: the 3x3 depthwise path of an op (csrc/segment_ops.cuh's op_dw3<1>,
 # op_dw3<2>, op_dw3_stem), 0 for none
 DW3_NONE, DW3_S1, DW3_S2, DW3_STEM = range(4)
-THREADS = 256  # threads a block in csrc/flatpack.cu
-NT = 3  # tiles of 8 pixels a warp's work item in csrc/flatpack.cu's op_pw_mma
+THREADS = 256  # threads a block in csrc/segment_ops.cuh
+NT = 3  # tiles of 8 pixels a warp's work item in csrc/segment_ops.cuh's op_pw_mma
 DW_STRIP = 3  # output pixels a work item of op_dw3
 STEM_STRIP = 4  # output pixels a work item of op_dw3_stem
 
@@ -408,7 +410,7 @@ def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
         if op.kind == "pw":
             # every tap of a 1x1 window is in bounds, so d is per filter
             fm, c = op.weights.shape[0], op.weights.shape[3]
-            if pw_mma(op):
+            if pw_mma(op.in_shape, op.out_shape):
                 f[F_MMA] = 1
                 f[F_W] = put(mma_fragments(op.weights.reshape(fm, c)))
             else:
@@ -420,24 +422,12 @@ def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
                          .astype(np.int32))
         elif op.kind == "fc":
             f[F_W] = put(np.ascontiguousarray(op.weights.T).astype(np.int8))  # [N, K]
-        elif dw3_path(op):
-            f[F_DW3] = dw3_path(op)
-            f[F_W] = put(dw3_words(op.weights))
-            f[F_D] = put((-op.in_zp * op.weights.reshape(9, -1).astype(np.int64).sum(0))
-                         .astype(np.int32))
-        elif op.kind == "dw" and _dw_vec(op):
-            # [ceil(T/4)][C] words: word (i, c) packs taps 4i..4i+3 (tap =
-            # dh*KW + dw) of channel c, zero-padded; d[c] = -in_zp * sum of
-            # all of c's taps (the kernel reads in_zp outside the input)
-            kh, kw, c = op.weights.shape
-            taps = kh * kw
-            w = np.zeros((-(-taps // 4) * 4, c), np.int8)
-            w[:taps] = op.weights.reshape(taps, c)
-            words = np.ascontiguousarray(w.reshape(-1, 4, c).transpose(0, 2, 1))
-            f[F_VEC] = 1
-            f[F_W] = put(words.view(np.int32).reshape(-1, c))
-            f[F_D] = put((-op.in_zp * op.weights.reshape(taps, c).astype(np.int64).sum(0))
-                         .astype(np.int32))
+        elif op.kind == "dw" and (dw3_path(op.geom, op.in_shape, op.out_shape)
+                                  or dw_vec(op.in_shape, op.out_shape)):
+            f[F_DW3] = dw3_path(op.geom, op.in_shape, op.out_shape)
+            f[F_VEC] = int(not f[F_DW3])
+            f[F_W] = put(dw3_words(op.weights) if f[F_DW3] else dw_vec_words(op.weights))
+            f[F_D] = put(dw_offsets(op.weights, op.in_zp).astype(np.int32))
         else:  # dw [KH,KW,C] and conv [F,KH,KW,C], as the layer holds them
             f[F_W] = put(op.weights.astype(np.int8))
         f[F_BIAS] = put(op.bias0.astype(np.float32))
@@ -446,30 +436,32 @@ def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
     return plan.bytes(), {"smem_a": a, "smem_b": b}
 
 
-def _dw_vec(op: FlatOp) -> bool:
-    """Whether the kernel takes a depthwise op four channels a thread: C a
-    multiple of 4 whose groups of 4 divide the block, and an input of C or
-    of 1 channel."""
-    c = op.out_shape[2]
-    return c % 4 == 0 and op.in_shape[2] in (1, c) and THREADS % (c // 4) == 0
+def dw_vec(in_shape, out_shape) -> bool:
+    """Whether the kernels take a depthwise op of these shapes four channels
+    a thread (``op_dw_vec``; the 3x3 paths also need it): C a multiple of 4
+    whose groups of 4 divide the block, and an input of C or of 1
+    channel."""
+    c = out_shape[2]
+    return c % 4 == 0 and in_shape[2] in (1, c) and THREADS % (c // 4) == 0
 
 
-def dw3_path(op: FlatOp) -> int:
-    """The kernel's 3x3 depthwise path for an op (``F_DW3``), a rule on
-    shape fixed in the plan: ``DW3_S1``/``DW3_S2`` for a 3x3 window at
-    stride 1 or 2 in both directions over as many input as output channels,
-    ``DW3_STEM`` for a 3x3/s2 depth-multiplier stem (one input channel) with
-    a left padding of 1 over a row of a multiple of 4 bytes, each with a
-    multiple of 4 channels whose groups of 4 divide the block; else
-    ``DW3_NONE`` (``op_dw_vec`` or ``op_dw``)."""
-    if op.kind != "dw" or not _dw_vec(op):
+def dw3_path(geom: ViewGeometry, in_shape, out_shape) -> int:
+    """The kernels' 3x3 depthwise path for a depthwise op of this geometry
+    and these shapes (``F_DW3``), a rule on shape fixed in the plan:
+    ``DW3_S1``/``DW3_S2`` for a 3x3 window at stride 1 or 2 in both
+    directions over as many input as output channels, ``DW3_STEM`` for a
+    3x3/s2 depth-multiplier stem (one input channel) with a left padding of
+    1 over a row of a multiple of 4 bytes, each with a multiple of 4
+    channels whose groups of 4 divide the block and an output of at most
+    ``MAX_LANES`` elements; else ``DW3_NONE`` (``op_dw_vec`` or
+    ``op_dw``)."""
+    if not dw_vec(in_shape, out_shape) or int(np.prod(out_shape)) > MAX_LANES:
         return DW3_NONE
-    g = op.geom
-    if (g.k_rows, g.k_cols) != (3, 3) or g.stride_rows != g.stride_cols:
+    if (geom.k_rows, geom.k_cols) != (3, 3) or geom.stride_rows != geom.stride_cols:
         return DW3_NONE
-    if op.in_shape[2] == op.out_shape[2] and g.stride_rows in (1, 2):
-        return DW3_S1 if g.stride_rows == 1 else DW3_S2
-    if g.stride_rows == 2 and g.pad_amounts()[2] == 1 and op.in_shape[1] % 4 == 0:
+    if in_shape[2] == out_shape[2] and geom.stride_rows in (1, 2):
+        return DW3_S1 if geom.stride_rows == 1 else DW3_S2
+    if geom.stride_rows == 2 and geom.pad_amounts()[2] == 1 and in_shape[1] % 4 == 0:
         return DW3_STEM
     return DW3_NONE
 
@@ -483,12 +475,31 @@ def dw3_words(w: np.ndarray) -> np.ndarray:
     return words.view(np.int32).reshape(3, w.shape[2])
 
 
-def pw_mma(op: FlatOp) -> bool:
-    """Whether the kernel takes a 1x1 conv on the tensor cores
-    (``mma.sync`` m16n8k32): a multiple of 16 output channels (the "pw"
-    kind already has a multiple of 4 input channels).  A rule on shape,
-    fixed in the plan."""
-    return op.kind == "pw" and op.out_shape[2] % 16 == 0
+def dw_vec_words(w: np.ndarray) -> np.ndarray:
+    """int8 depthwise taps ``[KH, KW, C]`` as ``op_dw_vec``'s int32 words
+    ``[ceil(T/4)][C]``: word (i, c) packs taps 4i..4i+3 (tap = dh*KW + dw)
+    of channel c, zero-padded."""
+    kh, kw, c = w.shape
+    taps = kh * kw
+    wp = np.zeros((-(-taps // 4) * 4, c), np.int8)
+    wp[:taps] = w.reshape(taps, c)
+    words = np.ascontiguousarray(wp.reshape(-1, 4, c).transpose(0, 2, 1))
+    return words.view(np.int32).reshape(-1, c)
+
+
+def dw_offsets(w: np.ndarray, in_zp: int) -> np.ndarray:
+    """int64 ``d[c] = -in_zp * the sum of all of channel c's taps`` of
+    depthwise taps ``[KH, KW, C]``: the int8 depthwise paths read ``in_zp``
+    for a tap outside the input, and ``d`` removes it again."""
+    return -np.int64(in_zp) * w.reshape(-1, w.shape[2]).astype(np.int64).sum(0)
+
+
+def pw_mma(in_shape, out_shape) -> bool:
+    """Whether the kernels take a 1x1 conv of these shapes on the tensor
+    cores (``mma.sync`` m16n8k32): a multiple of 4 input channels, a
+    multiple of 16 output channels and an output of at most ``MAX_LANES``
+    elements.  A rule on shape, fixed in the plan."""
+    return in_shape[2] % 4 == 0 and out_shape[2] % 16 == 0 and int(np.prod(out_shape)) <= MAX_LANES
 
 
 def mma_fragments(w: np.ndarray) -> np.ndarray:

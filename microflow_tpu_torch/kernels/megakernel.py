@@ -20,14 +20,31 @@ The segmentation is the JAX package's:
   the plain ops on the CPU, as the JAX package runs them through XLA.
 
 Ops inside a segment: depthwise conv (any window and stride, per-channel
-``w_zp``), Conv2D (any window and stride, per-channel ``w_zp``; a 1x1 conv
-over a multiple of 4 channels takes ``__dp4a``), FullyConnected (``w_zp``,
-``c2``, ``c3``), AveragePool (true-zero padding, the reciprocal plane) and
-int8 Quantize.  Every requant rounds half away from zero, as the JAX
-kernel's ``lax.round(..., AWAY_FROM_ZERO)``: ``y = bias0 + c1 * f32(q)``
-(multiply, then add), ``clip(roundf(y), lo, hi)``.  Both TPU kernels
-compute exactly the chain of the plain ops, so the plain version
-``segment_reference`` is that chain.
+``w_zp``), Conv2D (any window and stride, per-channel ``w_zp``),
+FullyConnected (``w_zp``, ``c2``, ``c3``), AveragePool (true-zero padding,
+the reciprocal plane) and int8 Quantize.  Every requant rounds half away
+from zero, as the JAX kernel's ``lax.round(..., AWAY_FROM_ZERO)``:
+``y = bias0 + c1 * f32(q)`` (multiply, then add), ``clip(roundf(y), lo,
+hi)``.  Both TPU kernels compute exactly the chain of the plain ops, so
+the plain version ``segment_reference`` is that chain.
+
+The plan is written in the flat kernel's descriptor layout, and the
+kernel shares the flat kernel's paths for its largest classes
+(``csrc/segment_ops.cuh``), chosen per op by the flat plan's rules on
+shape (``kernels/flatpack.py::dw3_path``, ``dw_vec``, ``pw_mma``):
+
+* a depthwise conv whose centred taps ``w - w_zp[c]`` all fit int8 takes
+  the 3x3 strips (``op_dw3``, ``op_dw3_stem``: ``F_DW3``) or four channels
+  a thread (``op_dw_vec``: ``F_VEC``) where its shape allows, with
+  ``d[c] = -in_zp * the sum of c's centred taps``; any other depthwise conv
+  takes ``op_dw`` with int32 taps;
+* a 1x1 conv with every ``w_zp[f] == 0`` takes the tensor cores
+  (``op_pw_mma``: ``F_MMA``) where its shape allows, with ``d[f] = -in_zp *
+  colsum``; any other over a multiple of 4 channels takes ``op_pw``
+  (``__dp4a``, ``w_zp[f]`` times the pixel's channel sum); the rest
+  ``op_conv``.
+
+``SegmentKernel.paths`` names the path of each op (``op_path``).
 
 Not carried over: the TPU's VMEM budget, batch tile and padding, lane
 padding, and stride-by-sweep-then-decimate; nor any ``MFT_*`` variable.
@@ -58,13 +75,60 @@ from ..compiler.ir import (
 from ..core.activation import activation_bounds
 from ..core.numerics import broadcast_per_channel
 from . import LAUNCHES, build
-from .flatpack import SMEM_BYTES, PlanBuffer, _f32_bits, _smem_split
+from .flatpack import (
+    DW3_NONE,
+    DW3_S1,
+    DW3_S2,
+    DW3_STEM,
+    F_BIAS,
+    F_C1,
+    F_D,
+    F_DW3,
+    F_EXACT,
+    F_HI,
+    F_IC,
+    F_IH,
+    F_IN,
+    F_IW,
+    F_KH,
+    F_KIND,
+    F_KW,
+    F_LO,
+    F_MMA,
+    F_OC,
+    F_OH,
+    F_OUT,
+    F_OUTZP,
+    F_OW,
+    F_PL,
+    F_PT,
+    F_RECIP,
+    F_S0,
+    F_S1,
+    F_SC,
+    F_SR,
+    F_VEC,
+    F_W,
+    F_WZP,
+    F_ZP,
+    NF,
+    SMEM_BYTES,
+    PlanBuffer,
+    _f32_bits,
+    _smem_split,
+    dw3_path,
+    dw3_words,
+    dw_offsets,
+    dw_vec,
+    dw_vec_words,
+    mma_fragments,
+    pw_mma,
+)
 
-# Op kinds and descriptor layout; csrc/megakernel.cu reads the same numbers.
+# Op kinds; csrc/megakernel.cu reads the same numbers.  The descriptor is
+# the flat kernel's (kernels/flatpack.py, NF fields), F_WZP included.
 KINDS = {"dw": 0, "conv": 1, "pw": 2, "fc": 3, "pool": 4, "quantize": 5}
-NF = 32  # int32 fields per op descriptor
-(F_KIND, F_IH, F_IW, F_IC, F_OH, F_OW, F_OC, F_KH, F_KW, F_SR, F_SC, F_PT, F_PL, F_ZP, F_LO, F_HI,
- F_W, F_WZP, F_D, F_BIAS, F_C1, F_RECIP, F_S0, F_S1, F_OUTZP, F_IN, F_OUT) = range(27)
+DW3_PATHS = {DW3_S1: "dw3_s1", DW3_S2: "dw3_s2", DW3_STEM: "dw3_stem"}
 
 
 def fusable(graph: Graph) -> bool:
@@ -244,6 +308,7 @@ def pack_segment(segment: Segment) -> tuple[np.ndarray, int, int]:
         f[F_OH], f[F_OW], f[F_OC] = _shape3(out_shape)
         f[F_IN], f[F_OUT] = int(np.prod(in_shape)), int(np.prod(out_shape))
         f[F_LO], f[F_HI] = -128, 127
+        f[F_EXACT] = 1  # every requant rounds half away from zero
         if kind == "quantize":
             f[F_ZP], f[F_OUTZP] = layer.in_q.zp0, layer.out_q.zp0
             f[F_S0], f[F_S1] = _f32_bits(layer.in_q.scale0), _f32_bits(layer.out_q.scale0)
@@ -273,15 +338,28 @@ def pack_segment(segment: Segment) -> tuple[np.ndarray, int, int]:
             c1 = broadcast_per_channel(layer.c1, c_out, np.float32)
             if kind == "dw":
                 wc = layer.weights.astype(np.int64) - wzp[None, None, :]  # [KH, KW, C]
-                f[F_W] = plan.put(wc.reshape(-1, c_out).astype(np.int32))
+                int8_taps = wc.min() >= -128 and wc.max() <= 127
+                path = dw3_path(geom, in_shape, out_shape) if int8_taps else DW3_NONE
+                if path or (int8_taps and dw_vec(in_shape, out_shape)):
+                    w8 = wc.astype(np.int8)
+                    f[F_DW3], f[F_VEC] = path, int(not path)
+                    f[F_W] = plan.put(dw3_words(w8) if path else dw_vec_words(w8))
+                    f[F_D] = plan.put(_i32(dw_offsets(w8, in_zp), "d"))
+                else:
+                    f[F_W] = plan.put(wc.reshape(-1, c_out).astype(np.int32))
             elif kind == "pw":
-                # [C/4][F] words: word (k, f) packs input channels 4k..4k+3 of
-                # filter f; d = C*in_zp*w_zp - in_zp*colsum
                 c_in = in_shape[2]
                 w = layer.filters.reshape(c_out, c_in)
-                words = np.ascontiguousarray(w.reshape(c_out, c_in // 4, 4).transpose(1, 0, 2))
-                f[F_W] = plan.put(words.view(np.int32).reshape(c_in // 4, c_out))
-                f[F_WZP] = plan.put(_i32(wzp, "w_zp"))
+                if not wzp.any() and pw_mma(in_shape, out_shape):
+                    f[F_MMA] = 1
+                    f[F_W] = plan.put(mma_fragments(w))
+                else:
+                    # [C/4][F] words: word (k, f) packs input channels
+                    # 4k..4k+3 of filter f
+                    words = np.ascontiguousarray(w.reshape(c_out, c_in // 4, 4).transpose(1, 0, 2))
+                    f[F_W] = plan.put(words.view(np.int32).reshape(c_in // 4, c_out))
+                    f[F_WZP] = plan.put(_i32(wzp, "w_zp"))
+                # d = C*in_zp*w_zp - in_zp*colsum (-in_zp*colsum on the tensor cores)
                 f[F_D] = plan.put(_i32(c_in * in_zp * wzp - in_zp * w.astype(np.int64).sum(1),
                                        "d"))
             else:
@@ -293,10 +371,25 @@ def pack_segment(segment: Segment) -> tuple[np.ndarray, int, int]:
     return plan.bytes(), smem_a, smem_b
 
 
+def op_path(desc) -> str:
+    """The kernel's path for an op, from its descriptor: ``"dw3_s1"``,
+    ``"dw3_s2"``, ``"dw3_stem"``, ``"dw_vec"`` or ``"dw"`` for a depthwise
+    conv, ``"pw_mma"`` or ``"pw"`` for a 1x1 conv over a multiple of 4
+    channels, else the op's kind (``"conv"``, ``"fc"``, ``"pool"``,
+    ``"quantize"``)."""
+    kind = {v: k for k, v in KINDS.items()}[int(desc[F_KIND])]
+    if kind == "dw":
+        return DW3_PATHS.get(int(desc[F_DW3]), "dw_vec" if desc[F_VEC] else "dw")
+    if kind == "pw" and desc[F_MMA]:
+        return "pw_mma"
+    return kind
+
+
 class SegmentKernel:
     """One segment: int8 [B, *in_shape] -> int8 [B, *out_shape].  CUDA
     tensors launch the kernel on the plan's device buffer (built once);
-    CPU tensors run ``segment_reference``."""
+    CPU tensors run ``segment_reference``.  ``paths`` names each op's path
+    in the kernel (``op_path``)."""
 
     def __init__(self, segment: Segment, params: dict, device: torch.device):
         self.segment = segment
@@ -304,6 +397,10 @@ class SegmentKernel:
         self.device = device
         self.plan = None
         buf, self.smem_a, self.smem_b = pack_segment(segment)
+        n = len(segment.layers)
+        # the host copy of the descriptors, which the entry point checks
+        self.desc = buf[:n * NF * 4].view(np.int32).reshape(n, NF).copy()
+        self.paths = [op_path(row) for row in self.desc]
         if device.type == "cuda":
             self.plan = torch.from_numpy(buf).to(device)
 
@@ -328,8 +425,8 @@ class SegmentKernel:
             return out
         fn = build.library("megakernel").mf_megakernel
         with torch.cuda.device(x.device):
-            rc = fn(x.data_ptr(), out.data_ptr(), b, self.plan.data_ptr(), len(seg.layers),
-                    seg.in_elems, seg.out_elems, self.smem_a, self.smem_b,
+            rc = fn(x.data_ptr(), out.data_ptr(), b, self.plan.data_ptr(), self.desc.ctypes.data,
+                    len(seg.layers), seg.in_elems, seg.out_elems, self.smem_a, self.smem_b,
                     torch.cuda.current_stream().cuda_stream)
         build.check(rc, "megakernel")
         LAUNCHES["megakernel"] += 1

@@ -11,8 +11,9 @@ Builds the kernel of every prefix of the model's plan (``--kernel flat``:
 ``megakernel``: the first k layers of the first segment of the ``fused``
 forward; ``packed``: the first k ops of the packed plan), times each with
 CUDA events on the same input, and prints one JSON line: per op its layer,
-kind, output shape, multiply-adds per sample, (``--kernel flat``) the
-weight bytes a block loads per sample for a 1x1 conv (the tensor-core
+kind (``--kernel megakernel``: its path in the kernel, ``op_path``),
+output shape, multiply-adds per sample, (``--kernel flat``) the weight
+bytes a block loads per sample for a 1x1 conv (the tensor-core
 path: its m-tile's A fragments once per work item of ``NT`` pixel tiles;
 ``op_pw``: one byte per multiply-add), and its marginal time (the
 prefix ending at it minus the prefix before; the flat kernel's first two
@@ -46,7 +47,6 @@ from microflow_tpu_torch.kernels.megakernel import (  # noqa: E402
     Segment,
     SegmentKernel,
     layer_macs,
-    op_kind,
 )
 from microflow_tpu_torch.kernels.packed import PackedKernel  # noqa: E402
 from microflow_tpu_torch.models import model_path  # noqa: E402
@@ -57,7 +57,7 @@ def weight_bytes(op) -> int | None:
     conv; None for other ops."""
     if op.kind != "pw":
         return None
-    if not flatpack.pw_mma(op):
+    if not flatpack.pw_mma(op.in_shape, op.out_shape):
         return op.macs()
     (oh, ow, oc), ic = op.out_shape, op.in_shape[2]
     chunks = -(-oh * ow // (8 * flatpack.NT))
@@ -76,8 +76,8 @@ def plan_prefixes(kernel: str, g):
     if kernel == "megakernel":
         seg = build_fused_forward(g, device="cuda").segments[0]
         s = seg.segment
-        ops = [(layer.index, op_kind(layer, shp[0]), shp[1], layer_macs(layer, shp[1]))
-               for layer, shp in zip(s.layers, s.shapes)]
+        ops = [(layer.index, path, shp[1], layer_macs(layer, shp[1]))
+               for layer, shp, path in zip(s.layers, s.shapes, seg.paths)]
         make = lambda k: SegmentKernel(Segment(s.layers[:k], s.in_shape, s.shapes[k - 1][1],
                                                s.gather, s.shapes[:k]), seg.params, seg.device)
         return ops, 1, make, s.in_shape

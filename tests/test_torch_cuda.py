@@ -32,6 +32,7 @@ from microflow_tpu_torch.kernels import (
     qgemm,
     qgemm_reference,
 )
+from microflow_tpu_torch.kernels import megakernel as tmega
 from microflow_tpu_torch.kernels.megakernel import hybrid_split_index
 from microflow_tpu_torch.models import GOLDENS, model_path
 
@@ -185,14 +186,21 @@ def _graph(name):
         return chip_smoke.pw_edge_graph(np.random.default_rng(0))
     if name == "dw_edge_graph":
         return chip_smoke.dw_edge_graph(np.random.default_rng(0))
+    if name == "dw_edge_graph_wzp":
+        return chip_smoke.dw_edge_graph(np.random.default_rng(0), wzp=True)
     return parse(model_path(name))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,backend", [
     ("person_detect", "fused"), ("person_detect", "hybrid"), ("speech", "fused"),
-    ("sine", "fused"), ("conv_graph_wzp", "fused")])
+    ("sine", "fused"), ("conv_graph_wzp", "fused"), ("pw_edge_graph", "fused"),
+    ("dw_edge_graph", "fused"), ("dw_edge_graph_wzp", "fused")])
 def test_megakernel_matches_plain(cuda, name, backend):
+    """Every segment, bit-equal to its plain version; the edge graphs put
+    the megakernel's tensor-core 1x1 path and its 3x3 strips at their edges,
+    ``dw_edge_graph_wzp`` with per-channel weight zero points
+    (``chip_smoke.DW_EDGE_WZP_PATHS``)."""
     g = _graph(name)
     fwd = build_fused_forward(g, hybrid_split_index(g) if backend == "hybrid" else 0,
                               device=cuda)
@@ -206,6 +214,24 @@ def test_megakernel_matches_plain(cuda, name, backend):
             got = seg(x)
             assert LAUNCHES["megakernel"] == before + (batch > 0)
             assert torch.equal(got, seg.reference(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [("F_MMA", 1), ("F_DW3", 1), ("F_IN", 0)])
+def test_megakernel_refuses_a_plan_its_reads_do_not_fit(cuda, field, value):
+    """The entry point rechecks the plan's descriptors and refuses the
+    launch: the tensor-core path marked on person_detect's 2-channel head,
+    the 3x3 strips on that 1x1 conv, or an op whose input is not the tensor
+    before it.  Nothing runs another path in its place."""
+    from microflow_tpu_torch.kernels import megakernel as tmega
+
+    (seg,) = build_fused_forward(parse(model_path("person_detect")), device=cuda).segments
+    seg.desc[-1, getattr(tmega, field)] = value
+    x = torch.zeros((2, *seg.segment.in_shape), dtype=torch.int8, device=cuda)
+    before = LAUNCHES["megakernel"]
+    with pytest.raises(RuntimeError, match="megakernel launch failed"):
+        seg(x)
+    assert LAUNCHES["megakernel"] == before
 
 
 @pytest.mark.cuda

@@ -40,7 +40,7 @@ from microflow_tpu_torch.frontend import parse
 from microflow_tpu_torch.kernels import LAUNCHES, qdwconv, qdwconv_reference
 from microflow_tpu_torch.models import model_path
 from test_torch_cuda import np_zp_padded, torch_args
-from test_torch_flatpack_dw import byte_perm, dp4a
+from torch_emulators import byte_perm, dp4a
 
 kq = importlib.import_module("microflow_tpu_torch.kernels.qdwconv")  # the module, not the function
 F32 = np.float32

@@ -1,0 +1,296 @@
+"""numpy emulators of the shared op paths of the whole-network kernels
+(``microflow_tpu_torch/csrc/segment_ops.cuh``, which ``flatpack.cu`` and
+``megakernel.cu`` both include): ``op_pw_mma``, ``op_dw3`` /
+``op_dw3_stem`` and ``op_dw_vec``.
+
+Each emulator follows the kernel's indexing step by step on one sample:
+the work items, the constants read from the plan bytes that
+``kernels/flatpack.py::pack_plan`` or ``kernels/megakernel.py::pack_segment``
+wrote (both write the same descriptor layout), the shared-memory words each
+thread reads, the byte permutations, ``__dp4a`` as an integer dot of four
+signed bytes and ``mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`` by
+PTX's fragment tables for ``.s8``.  Each returns the int64 accumulators
+before the epilogue and asserts where the kernel reads (aligned, inside the
+input row) and that every output is written once.  The tests hold them
+exactly against the JAX package's ``conv_2d_accumulate`` and
+``depthwise_conv_2d_accumulate``.
+"""
+
+import numpy as np
+
+from microflow_tpu_torch.kernels import flatpack as tflat
+
+LANE = np.arange(32)
+G, T = LANE >> 2, LANE & 3
+BYTE = np.arange(16)
+# PTX m16n8k32 .s8 fragments, lane 4g + t: a byte j of register j // 4
+# (a0 row g k 4t.., a1 row g+8 k 4t.., a2 row g k 16+4t.., a3 row g+8 k 16+4t..)
+A_ROW = G[:, None] + 8 * ((BYTE[None, :] // 4) % 2)
+A_COL = 4 * T[:, None] + BYTE[None, :] % 4 + 16 * (BYTE[None, :] // 8)
+# b byte j (b0 k 4t..4t+3, b1 k 16+4t..16+4t+3) of column g
+B_ROW = 4 * T[:, None] + BYTE[None, :8] % 4 + 16 * (BYTE[None, :8] // 4)
+B_COL = np.broadcast_to(G[:, None], (32, 8))
+# d register i: row g (+8 for i >= 2), column 2t + i % 2
+D_ROW = G[:, None] + 8 * (np.arange(4)[None, :] // 2)
+D_COL = 2 * T[:, None] + np.arange(4)[None, :] % 2
+
+
+def mma(d: np.ndarray, a: np.ndarray, b: np.ndarray) -> None:
+    """``d [32 lanes, 4] += A x B``, A from ``a [32, 16]`` int8 bytes, B
+    from ``b [32, 8]``."""
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+    A[A_ROW, A_COL] = a
+    B[B_ROW, B_COL] = b
+    d += (A @ B)[D_ROW, D_COL]
+
+
+
+def div16(n, d: int):
+    """The kernel's ``Div16``: ``n // d`` as ``(n * M) >> 32`` with
+    ``M = ceil(2**32 / d)`` split into a 32-bit ``lo`` and ``hi = d == 1``."""
+    lo = np.uint64((0xFFFFFFFF // d + 1) & 0xFFFFFFFF)
+    n = np.asarray(n).astype(np.uint64)
+    return ((n * lo) >> np.uint64(32)).astype(np.int64) + (n.astype(np.int64) if d == 1 else 0)
+
+
+
+def row_words(x: np.ndarray, off: np.ndarray, c: np.ndarray, ic: int, n: int) -> np.ndarray:
+    """The kernel's ``row_words<n>`` for all lanes: ``[32, 4n]`` bytes of
+    channels ``c..c+4n-1`` of the pixel row at ``off``; 0 (no read) for a
+    word past ``ic`` or an absent pixel (``off < 0``)."""
+    ch = c[:, None] + np.arange(4 * n)[None, :]
+    ok = (off >= 0)[:, None] & (c[:, None] + 4 * (np.arange(4 * n)[None, :] // 4) < ic)
+    at = off[:, None] + ch
+    assert (at[ok] < x.size).all() and (at[ok] >= 0).all()
+    vector = (off >= 0) & (ic % (4 * n) == 0) & (c < ic)
+    assert ((off + c)[vector] % (4 * n) == 0).all()  # the vector load is aligned
+    assert ((off + c)[off >= 0] % 4 == 0).all()  # every word is
+    return np.where(ok, x[np.where(ok, at, 0)], 0)
+
+
+def op_pw_mma(row: np.ndarray, buf: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """One sample through the kernel's ``op_pw_mma``: descriptor ``row``,
+    plan bytes ``buf``, int8 input row ``x``; returns the int64
+    accumulators ``[OH*OW, OC]`` before the epilogue."""
+    iw, ic, ow, oc = (int(row[f]) for f in (tflat.F_IW, tflat.F_IC, tflat.F_OW, tflat.F_OC))
+    npx, sr, sc = int(row[tflat.F_OH]) * ow, int(row[tflat.F_SR]), int(row[tflat.F_SC])
+    nt = tflat.NT
+    units = (ic + 31) // 32
+    chunks = -(-npx // (8 * nt))
+    frag = buf[row[tflat.F_W]:row[tflat.F_W] + oc * units * 32].view(np.int8)
+    frag = frag.reshape(oc // 16, units, 32, 16).astype(np.int64)
+    d = buf[row[tflat.F_D]:row[tflat.F_D] + 4 * oc].view(np.int32).astype(np.int64)
+    out = np.zeros((npx, oc), np.int64)
+    written = np.zeros((npx, oc), np.int64)
+    for item in range((oc // 16) * chunks):
+        m = int(div16(item, chunks))
+        n0 = (item - m * chunks) * 8 * nt
+        r0 = 16 * m + G
+        off = []
+        for j in range(nt):
+            p = n0 + 8 * j + G
+            row = div16(p, ow)
+            off.append(np.where(p < npx, (row * sr * iw + (p - row * ow) * sc) * ic, -1))
+        acc = [np.stack([d[r0], d[r0], d[r0 + 8], d[r0 + 8]], 1) for _ in range(nt)]
+        u = 0
+        for kb in range(0, ic, 64):
+            pair = ic - kb > 32
+            a = frag[m, u:u + 1 + pair]
+            u += 1 + pair
+            for j in range(nt):  # a tile past the pixels reads zeros
+                if pair:
+                    w = row_words(x, off[j], kb + 16 * T, ic, 4)
+                    mma(acc[j], a[0], w[:, :8])
+                    mma(acc[j], a[1], w[:, 8:])
+                else:
+                    mma(acc[j], a[0], row_words(x, off[j], kb + 8 * T, ic, 2))
+        assert u == units
+        for j in range(nt):
+            assert (np.abs(acc[j]) < 2**31).all()
+            for i in range(2):
+                p = n0 + 8 * j + 2 * T + i
+                ok = p < npx
+                for rows, reg in ((r0, i), (r0 + 8, 2 + i)):
+                    out[p[ok], rows[ok]] = acc[j][ok, reg]
+                    written[p[ok], rows[ok]] += 1
+    assert (written == 1).all()
+    return out
+
+
+
+def byte_perm(x, y, s: int) -> np.ndarray:
+    """CUDA's ``__byte_perm(x, y, s)`` on uint32 arrays: result byte n is
+    byte ``(s >> 4n) & 7`` of x (0-3) and y (4-7)."""
+    src = [(np.asarray(v, np.uint64) >> np.uint64(8 * i)) & np.uint64(0xFF)
+           for v in (x, y) for i in range(4)]
+    out = np.zeros(np.shape(x), np.uint64)
+    for n in range(4):
+        out |= src[(s >> (4 * n)) & 7] << np.uint64(8 * n)
+    return out
+
+
+def signed_bytes(v) -> np.ndarray:
+    """The four bytes of uint32 words as int64 ``[..., 4]``, low byte first,
+    each as a signed int8."""
+    v = np.asarray(v, np.uint64)
+    b = np.stack([(v >> np.uint64(8 * i)) & np.uint64(0xFF) for i in range(4)], -1)
+    return b.astype(np.int64) - 256 * (b >= 128)
+
+
+def dp4a(x, w, acc) -> np.ndarray:
+    """``__dp4a(x, w, acc)``: acc plus the dot of x's and w's signed bytes."""
+    return acc + (signed_bytes(x) * signed_bytes(w)).sum(-1)
+
+
+def work_items(groups: int, items: int):
+    """The kernel's loop: thread t keeps channel group ``t % groups`` and
+    takes items ``t // groups``, ``+ THREADS // groups``, ... below
+    ``items``.  Returns the (group, item) pairs, one row a thread-item."""
+    t = np.arange(tflat.THREADS)
+    per = tflat.THREADS // groups
+    pairs = [(t % groups, t // groups + k * per) for k in range(-(-items // per))]
+    g = np.concatenate([p[0] for p in pairs])
+    it = np.concatenate([p[1] for p in pairs])
+    keep = it < items
+    return g[keep], it[keep]
+
+
+def read_words(x: np.ndarray, addr: np.ndarray, ok: np.ndarray, row_lo, row_hi, zpw):
+    """32-bit words at byte ``addr`` of the input row ``x`` where ``ok``,
+    else ``zpw``; every read must be aligned and inside its input row
+    ``[row_lo, row_hi)``."""
+    assert (addr[ok] % 4 == 0).all()
+    assert (addr[ok] >= row_lo[ok]).all() and (addr[ok] + 4 <= row_hi[ok]).all()
+    at = np.where(ok, addr, 0)
+    b = x.view(np.uint8).astype(np.uint64)
+    w = b[at] | b[at + 1] << np.uint64(8) | b[at + 2] << np.uint64(16) | b[at + 3] << np.uint64(24)
+    return np.where(ok, w, np.uint64(zpw))
+
+
+def plan_consts(row, buf):
+    c = int(row[tflat.F_OC])
+    w = buf[row[tflat.F_W]:row[tflat.F_W] + 12 * c].view(np.int32).astype(np.uint32)
+    d = buf[row[tflat.F_D]:row[tflat.F_D] + 4 * c].view(np.int32).astype(np.int64)
+    return w.reshape(3, c), d
+
+
+def op_dw3(row, buf, x: np.ndarray) -> np.ndarray:
+    """One sample through the kernel's ``op_dw3<SD>`` or ``op_dw3_stem``:
+    descriptor ``row``, plan bytes ``buf``, int8 input row ``x``; returns
+    the int64 accumulators ``[OH*OW, C]`` before the epilogue."""
+    ih, iw, oh, ow, c, pt, pl, zp = (int(row[f]) for f in (
+        tflat.F_IH, tflat.F_IW, tflat.F_OH, tflat.F_OW, tflat.F_OC, tflat.F_PT, tflat.F_PL,
+        tflat.F_ZP))
+    path = int(row[tflat.F_DW3])
+    zpw = (zp & 0xFF) * 0x01010101
+    w, d = plan_consts(row, buf)
+    stem = path == tflat.DW3_STEM
+    sd = 1 if path == tflat.DW3_S1 else 2
+    s = tflat.STEM_STRIP if stem else tflat.DW_STRIP
+    groups = c // 4
+    ns = -(-ow // s)
+    g, it = work_items(groups, oh * ns)
+    oy = it // ns
+    ox = (it - oy * ns) * s
+    acc = np.repeat(d.reshape(groups, 1, 4)[g], s, axis=1)  # [items, S, 4]
+    for dh in range(3):
+        r = oy * sd - pt + dh
+        rok = (r >= 0) & (r < ih)
+        wt = [w[dh, 4 * g + j] for j in range(4)]  # channel j's taps of row dh
+        if stem:
+            b = 2 * ox - 4  # bytes 8s-4 .. 8s+7 of the row: three words
+            words = [read_words(x, r * iw + b + 4 * m, rok & (b + 4 * m >= 0) & (b + 4 * m < iw),
+                                r * iw, r * iw + iw, zpw) for m in range(3)]
+            xw = [byte_perm(words[0], words[1], 0x6543), byte_perm(words[1], words[2], 0x4321),
+                  byte_perm(words[1], words[2], 0x6543), words[2] >> np.uint64(8)]
+            for o in range(s):
+                for j in range(4):
+                    acc[:, o, j] = dp4a(xw[o], wt[j], acc[:, o, j])
+            continue
+        nx = s + 2 if sd == 1 else 2 * s + 1
+        q0 = ox * sd - pl
+        xs = []
+        for i in range(nx):
+            q = q0 + i
+            xs.append(read_words(x, (r * iw + q) * c + 4 * g, rok & (q >= 0) & (q < iw),
+                                 r * iw * c, (r * iw + iw) * c, zpw))
+        np_ = (nx + 1) // 2
+        p01 = [byte_perm(xs[2 * i], xs[min(2 * i + 1, nx - 1)], 0x5140) for i in range(np_)]
+        p23 = [byte_perm(xs[2 * i], xs[min(2 * i + 1, nx - 1)], 0x7362) for i in range(np_)]
+        for i in range(np_ - 1):
+            xw = [byte_perm(p01[i], p01[i + 1], 0x5410), byte_perm(p01[i], p01[i + 1], 0x7632),
+                  byte_perm(p23[i], p23[i + 1], 0x5410), byte_perm(p23[i], p23[i + 1], 0x7632)]
+            for j in range(4):
+                if sd == 1:
+                    if 2 * i < s:
+                        acc[:, 2 * i, j] = dp4a(xw[j], wt[j], acc[:, 2 * i, j])
+                    if 2 * i + 1 < s:
+                        shifted = (wt[j].astype(np.uint64) << np.uint64(8)) & np.uint64(0xFFFFFFFF)
+                        acc[:, 2 * i + 1, j] = dp4a(xw[j], shifted, acc[:, 2 * i + 1, j])
+                elif i < s:
+                    acc[:, i, j] = dp4a(xw[j], wt[j], acc[:, i, j])
+    out = np.zeros((oh * ow, c), np.int64)
+    written = np.zeros((oh * ow, c), np.int64)
+    for o in range(s):
+        keep = ox + o < ow
+        p = (oy * ow + ox + o)[keep]
+        for j in range(4):
+            out[p, 4 * g[keep] + j] = acc[keep, o, j]
+            np.add.at(written, (p, 4 * g[keep] + j), 1)
+    assert (written == 1).all()
+    assert (np.abs(out) < 2**31).all()
+    return out
+
+
+
+def op_dw_vec(row, buf, x: np.ndarray) -> np.ndarray:
+    """One sample through the kernel's ``op_dw_vec``: descriptor ``row``,
+    plan bytes ``buf``, int8 input row ``x`` (C channels, or one that every
+    channel reads); returns the int64 accumulators ``[OH*OW, C]`` before the
+    epilogue.  Thread t keeps channel group ``t % groups`` and takes pixels
+    ``t // groups``, ``+ THREADS // groups``, ...; per four taps it reads
+    one word a tap (the group's channels of the pixel, or its one channel
+    in all four bytes; ``in_zp`` outside the input; 0 past the last tap),
+    transposes them into one word of four taps a channel and multiplies it
+    by the plan's word of those taps."""
+    ih, iw, ic, oh, ow, c, kh, kw, sr, sc, pt, pl, zp = (int(row[f]) for f in (
+        tflat.F_IH, tflat.F_IW, tflat.F_IC, tflat.F_OH, tflat.F_OW, tflat.F_OC, tflat.F_KH,
+        tflat.F_KW, tflat.F_SR, tflat.F_SC, tflat.F_PT, tflat.F_PL, tflat.F_ZP))
+    taps, groups = kh * kw, c // 4
+    n4 = -(-taps // 4)
+    zpw = (zp & 0xFF) * 0x01010101
+    w = buf[row[tflat.F_W]:row[tflat.F_W] + 16 * n4 * groups].view(np.int32).astype(np.uint32)
+    w = w.reshape(n4, c)
+    d = buf[row[tflat.F_D]:row[tflat.F_D] + 4 * c].view(np.int32).astype(np.int64)
+    g, p = work_items(groups, oh * ow)
+    r0, q0 = (p // ow) * sr - pt, (p % ow) * sc - pl
+    acc = d.reshape(groups, 4)[g].copy()  # [items, 4]
+    for i in range(n4):
+        t = []
+        for j in range(4):
+            tap = 4 * i + j
+            if tap >= taps:
+                t.append(np.zeros(len(g), np.uint64))
+                continue
+            r, q = r0 + tap // kw, q0 + tap % kw
+            ok = (r >= 0) & (r < ih) & (q >= 0) & (q < iw)
+            pix = r * iw + q
+            if ic == 1:
+                byte = x.view(np.uint8).astype(np.uint64)[np.where(ok, pix, 0)]
+                t.append(np.where(ok, byte * np.uint64(0x01010101), np.uint64(zpw)))
+            else:
+                t.append(read_words(x, pix * ic + 4 * g, ok, (pix - q) * ic, (pix - q + iw) * ic,
+                                    zpw))
+        # transpose4: word j of channel group's taps -> word of channel j's taps
+        tb = np.stack([signed_bytes(v) for v in t], 1)  # [items, tap j, channel]
+        for ch in range(4):
+            acc[:, ch] += (tb[:, :, ch] * signed_bytes(w[i, 4 * g + ch])).sum(-1)
+    out = np.zeros((oh * ow, c), np.int64)
+    written = np.zeros((oh * ow, c), np.int64)
+    for ch in range(4):
+        out[p, 4 * g + ch] = acc[:, ch]
+        np.add.at(written, (p, 4 * g + ch), 1)
+    assert (written == 1).all()
+    assert (np.abs(out) < 2**31).all()
+    return out
