@@ -9,7 +9,9 @@ line; any failure raises and the script exits non-zero:
 
 1. device: CUDA must be present; the card's name and power limit.
 2. build: the six kernels of ``microflow_tpu_torch/csrc/`` with ``nvcc``,
-   in parallel.
+   in parallel; ``ptxas`` registers, stack and spills of every entry
+   function, and a check that the exact2 flat kernel and the megakernel
+   keep 64 registers, no stack and no spills.
 3. kernels: each kernel held bit-equal against its plain torch version:
    ``qgemm``/``qdwconv`` at every layer shape of sine, speech and
    person_detect (batch 64) and on edge cases (``qdwconv``'s, on its
@@ -33,7 +35,14 @@ line; any failure raises and the script exits non-zero:
    of the kernel's paths: person_detect's 14 depthwise ops on the 3x3
    strips and 13 1x1 convs on ``mma.sync``);
    ``packed`` on person_detect's prefixes (whole, 5, 9 and 15 layers) and
-   a small packable graph at batches 64, 3 and 0; ``flatpack``, ``colfc``
+   a small packable graph at batches 64, 3 and 0; ``flatpack_fixed`` (the
+   flat kernel with ``requant="fixed"``, the integer (M, S) epilogue, its
+   own instantiation ``flat_kernel<true>``) on person_detect (whole, 2 and
+   12 layers), speech and sine at batches 64, 3 and 0, on the conv graph,
+   ``pw_edge_graph`` and ``dw_edge_graph``, and on three fixed-epilogue edge
+   graphs (``fixed_edge_graph``: p exactly on +-(k + 0.5) and the ulps
+   around it, both rails, q past +-2**24, with no activation, RELU and
+   RELU6, out_zp != 0; the phase prints what each met); ``flatpack``, ``colfc``
    and ``megakernel`` on two small FC graphs whose constants put the
    epilogue on the ``exact2`` corners (counted: the megakernel rounds half
    away there), on +-k.5 and the ulps around them, past both rails, and on
@@ -45,7 +54,8 @@ line; any failure raises and the script exits non-zero:
    all 8, made outside the timed call, first checked equal to the integer
    accumulators),
    ``flatpack`` on person_detect and speech at batch
-   8192, ``colfc`` on sine at batch 1,048,576, ``megakernel`` (person_detect's
+   8192 (person_detect: exact2, then ``flatpack_fixed`` on the same input,
+   then exact2 again), ``colfc`` on sine at batch 1,048,576, ``megakernel`` (person_detect's
    fused segment) and ``packed`` (its prefix) at batch 8192.
 4. main paths, each driven with the launch counts set to 0 just before it
    and read just after: the three Rust goldens through ``compile_tflite``
@@ -59,30 +69,41 @@ line; any failure raises and the script exits non-zero:
    and ``"packed"`` (1 ``packed``, 2 ``qdwconv``, 3 ``qgemm``), each with
    person_detect's golden, and the sine and speech goldens through
    ``"fused"`` and ``"hybrid"``; 4 speech requests through ``"fused"`` (2
-   ``megakernel`` launches a forward).
+   ``megakernel`` launches a forward); the 4 person_detect requests through
+   ``backend="auto"`` with ``MFT_FLAT_REQUANT=fixed`` (4 ``flatpack_fixed``
+   launches, no other kernel; their distance from ``xla`` printed), then
+   the JAX package's gate for that mode (``tests/test_flatpack.py``: its 8
+   random int8 samples within 2 LSB of ``xla``).
 5. whole model: ``flat``, ``pallas``, ``fused``, ``hybrid``, (sine)
    ``colfc`` and (person_detect) ``packed`` bit-equal to the plain torch
-   backend ``xla`` on random int8 inputs, batch 1024.
+   backend ``xla`` on random int8 inputs, batch 1024; ``flat`` with
+   ``MFT_FLAT_REQUANT=fixed`` on person_detect and speech bit-equal to the
+   plain fixed flat forward, and its largest deviation from ``xla`` and
+   how many outputs differ (printed, not gated).
 6. throughput: ``predict_inner`` inferences/s of person_detect through
    ``flat`` and ``pallas`` in turns (flat, pallas, pallas, flat) at batch
    8192 and 32768, and of speech at batch 8192; then person_detect through
-   ``fused``, ``hybrid`` and ``packed`` at batch 8192, once each.
+   ``flat`` with ``MFT_FLAT_REQUANT`` exact2, fixed, fixed, exact2 at batch
+   8192; then through ``fused``, ``hybrid`` and ``packed``, once each.
 
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  In the kernels line ``launches`` is the
 count from the kernel's main path in phase 4; ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are, for ``qgemm`` and ``qdwconv``, sums
 over their 14 launches in one person_detect forward at batch 8192 (per
-launch in the ``kernel_times`` line), for ``flatpack`` one person_detect
-forward at batch 8192, for ``colfc`` one sine forward at batch 1,048,576,
-for ``megakernel`` and ``packed`` one launch on person_detect at batch
-8192.  No single PyTorch call computes a whole network or a segment, so
-those four kernels have no ``library_ms``.
+launch in the ``kernel_times`` line), for ``flatpack`` and
+``flatpack_fixed`` one person_detect forward at batch 8192, for ``colfc``
+one sine forward at batch 1,048,576, for ``megakernel`` and ``packed`` one
+launch on person_detect at batch 8192.  No single PyTorch call computes a whole network or a segment, so
+those five kernels have no ``library_ms``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -151,6 +172,9 @@ KERNEL_INFO = {
                 "replaces": "microflow_tpu/kernels/qdwconv.py:81"},
     "flatpack": {"source": "microflow_tpu_torch/csrc/flatpack.cu",
                  "replaces": "microflow_tpu/kernels/flatpack.py:662"},
+    # the flat kernel's requant="fixed" instantiation, flat_kernel<true>
+    "flatpack_fixed": {"source": "microflow_tpu_torch/csrc/flatpack.cu",
+                       "replaces": "microflow_tpu/kernels/flatpack.py:809"},
     "colfc": {"source": "microflow_tpu_torch/csrc/colfc.cu",
               "replaces": "microflow_tpu/kernels/colfc.py:89"},
     "megakernel": {"source": "microflow_tpu_torch/csrc/megakernel.cu",
@@ -195,6 +219,21 @@ DW_EDGE_CASES = (
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def flat_requant(mode: str):
+    """``MFT_FLAT_REQUANT=mode`` while models are built (the builder reads it
+    where it makes the flat kernel, as the JAX package's does)."""
+    old = os.environ.get("MFT_FLAT_REQUANT")
+    os.environ["MFT_FLAT_REQUANT"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MFT_FLAT_REQUANT"]
+        else:
+            os.environ["MFT_FLAT_REQUANT"] = old
 
 
 def nvidia_smi(fields: str) -> str:
@@ -257,6 +296,22 @@ def dw_plan(args, kw):
                         sc=kw["sc"], pad_top=kw["pad_top"], pad_left=kw["pad_left"], oh=kw["oh"],
                         ow=kw["ow"], int8_taps=kw.get("int8_taps", False),
                         x_align=next(a for a in (16, 4, 1) if x.data_ptr() % a == 0))
+
+
+def ptxas_usage(log: list) -> dict:
+    """``ptxas -v`` lines -> {function: {"registers", "stack", "spill_stores",
+    "spill_loads"}} for every entry function."""
+    usage, fn = {}, None
+    for ln in log:
+        if m := re.search(r"Compiling entry function '(\S+)'", ln):
+            fn = m.group(1)
+            usage[fn] = {"registers": 0, "stack": 0, "spill_stores": 0, "spill_loads": 0}
+        elif fn and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                    r"(\d+) bytes spill loads", ln)):
+            usage[fn].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        elif fn and (m := re.search(r"Used (\d+) registers", ln)):
+            usage[fn]["registers"] = int(m[1])
+    return usage
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -422,6 +477,91 @@ def edge_graphs(rng) -> tuple[list, int]:
     hit = fma_hits(x * w, b, np.full(m, c1_fixed), np_exact2)[:32]
     graphs.append(edge_graph("edge_fma", w[hit].tolist(), b[hit].tolist(), float(c1_fixed)))
     return graphs, len(hit)
+
+
+def fixed_target(p: float):
+    """``(M, S, q)``, M in [2**14, 2**15) and |q| < 2**22, for which the
+    fixed epilogue's ``f32(q) * (M * 2**-S)`` is exactly ``p``; None if
+    there is none below S = 44."""
+    ms = np.arange(1 << 14, 1 << 15, dtype=np.int64)
+    for shift in range(15, 44):
+        n = p * 2.0**shift
+        if n != int(n):
+            continue
+        for m in ms[(abs(int(n)) % ms) == 0]:
+            q = int(n) // int(m)
+            if abs(q) < 1 << 22:
+                return int(m), shift, q
+    return None
+
+
+FIXED_EDGE_ACTS = ((FusedActivation.NONE, -7, 0.05), (FusedActivation.RELU, -3, 0.05),
+                   (FusedActivation.RELU6, 5, 0.1))  # (activation, out_zp, out_scale)
+
+
+def fixed_edge_graph(act: FusedActivation, out_zp: int, out_scale: float) -> Graph:
+    """The fixed-point epilogue at its edges, on the flat kernel's
+    tensor-core path: int8 [1, 1, 4] -> a 1x1 conv 4 -> 4 that passes the
+    input through (m = 1, bias_q = 0) -> a 1x1 conv 4 -> N with per-channel
+    constants, whose lane n computes ``q = x * w[n] + bias_q[n]`` from the
+    first input channel x and ``p = f32(q) * m[n]``.  Lanes with w = 1 put
+    p, at x = 0, exactly on +-(k + 0.5) and on the one and two ulps around
+    it (k = 0, 1, 2, 5, 17, 63, 126, by ``fixed_target``; 0.5 - 2**-25
+    among them), and as x sweeps int8 on their neighbours; lanes with m =
+    0.5 put p on every +-(k + 0.5) as x sweeps and past both rails (bias_q
+    = +-300, w = 127 and -128); lanes with m = 2**-18 carry q past +-2**24,
+    where f32(q) rounds.  ``out_zp`` lands after the rounding."""
+    f32 = np.float32
+    lanes = []  # (w, M, S, bias_q)
+    for k in (0, 1, 2, 5, 17, 63, 126):
+        h = f32(k + 0.5)
+        below = np.nextafter(h, f32(0))
+        above = np.nextafter(h, f32(1e9))
+        for v in (h, below, above, np.nextafter(below, f32(0)), np.nextafter(above, f32(1e9))):
+            for sign in (1, -1):
+                hit = fixed_target(float(v) * sign)
+                if hit is not None:
+                    lanes.append((1, *hit))
+    for b in (0, 1, 300, -300):
+        lanes.append((1, 1 << 14, 15, b))
+    for w in (127, -128):
+        lanes.append((w, 1 << 14, 15, 0))
+    for b in (2**24 + 2**17, -(2**24 + 2**17), 3 * 2**23 + 2**17 + 1, -(2**24 - 40)):
+        lanes.append((1, 1 << 14, 32, b))
+    n = -(-len(lanes) // 16) * 16  # a multiple of 16: the tensor-core path
+    lanes += [(1, 1 << 14, 15, 0)] * (n - len(lanes))
+    w, m, shift, bias_q = (np.array(v, np.int64) for v in zip(*lanes))
+    c1 = (m * np.exp2(-shift.astype(np.float64))).astype(f32)
+    c0 = (bias_q * c1.astype(np.float64)).astype(f32)  # round(c0 / c1) = bias_q
+    unit = lambda zp, scale=1.0: QuantInfo(np.array([scale], f32), np.array([zp], np.int64))
+    g1 = ViewGeometry(1, 1, 1, 1, 1, 1, 1, 1, ViewPadding.VALID)
+    eye = np.eye(4, dtype=np.int8).reshape(4, 1, 1, 4)
+    f = np.zeros((n, 1, 1, 4), np.int8)
+    f[:, 0, 0, 0] = w
+    layers = [
+        Conv2DLayer(0, eye, unit(0), unit(0), unit(0), unit(0), np.zeros(4, f32),
+                    np.ones(4, f32), g1, FusedActivation.NONE, (1, 1, 4)),
+        Conv2DLayer(1, f, unit(0), unit(0), unit(0), unit(out_zp, out_scale), c0, c1, g1, act,
+                    (1, 1, n))]
+    return Graph(name=f"fixed_edge_{act.value}", layers=layers, input_shape=(1, 1, 4),
+                 input_q=unit(0), input_dtype=np.dtype(np.int8), output_shape=(1, 1, n),
+                 output_q=unit(out_zp, out_scale), output_dtype=np.dtype(np.int8))
+
+
+def fixed_edge_counts(op, x0: np.ndarray) -> dict:
+    """What a fixed edge graph's second op meets on first input channels
+    ``x0``, counted over (sample, lane): p exactly on +-(k + 0.5), p within
+    two ulps of one and not on it, outputs past a rail, and q that f32
+    rounds."""
+    f32 = np.float32
+    q = x0.astype(np.int64)[:, None] * op.weights[:, 0, 0, 0].astype(np.int64) + op.bias_q
+    p = (q.astype(f32) * op.m).astype(f32)
+    half = (np.floor(p.astype(np.float64)) + 0.5).astype(f32)
+    gap = np.abs(p.view(np.int32).astype(np.int64) - half.view(np.int32).astype(np.int64))
+    t = np.trunc((p + np.where(p >= 0, f32(0.5), f32(-0.5))).astype(f32)) + op.out_zp
+    return {"ties": int((p == half).sum()), "near_ties": int(((gap > 0) & (gap <= 2)).sum()),
+            "past_rails": int(((t < op.clip_lo) | (t > op.clip_hi)).sum()),
+            "q_rounded_to_f32": int((q.astype(f32).astype(np.int64) != q).sum())}
 
 
 def exact2_corners(g: Graph, sweep: np.ndarray) -> int:
@@ -691,21 +831,23 @@ def whole_network_checks(dev, rng) -> dict:
     """``flatpack``, ``colfc``, ``megakernel`` and ``packed`` against their
     plain versions on the card: max |kernel - plain| per kernel and the
     number of checks."""
-    errs = {"flatpack": [], "colfc": [], "megakernel": [], "packed": []}
+    errs = {"flatpack": [], "flatpack_fixed": [], "colfc": [], "megakernel": [], "packed": []}
     mma_ops, dw3_ops, mega_paths = {}, {}, {}
 
-    def flat_check(g, label, batches, max_layers=None):
-        flat_fn, _, meta = build_flat_kernel(g, max_layers=max_layers, device=dev)
-        mma_ops[label] = [op.layer_idx for op in flat_fn.ops
-                          if op.kind == "pw" and pw_mma(op.in_shape, op.out_shape)]
-        dw3_ops[label] = {op.layer_idx: path for op in flat_fn.ops if op.kind == "dw"
-                          and (path := dw3_path(op.geom, op.in_shape, op.out_shape))}
+    def flat_check(g, label, batches, max_layers=None, requant="exact2"):
+        flat_fn, _, meta = build_flat_kernel(g, max_layers=max_layers, requant=requant,
+                                             device=dev)
+        if requant == "exact2":
+            mma_ops[label] = [op.layer_idx for op in flat_fn.ops
+                              if op.kind == "pw" and pw_mma(op.in_shape, op.out_shape)]
+            dw3_ops[label] = {op.layer_idx: path for op in flat_fn.ops if op.kind == "dw"
+                              and (path := dw3_path(op.geom, op.in_shape, op.out_shape))}
         for b in batches:
             xn = rng.integers(-128, 128, (b, meta["in_lanes"]), dtype=np.int8)
             xn.flat[:2] = (-128, 127)  # both int8 rails in every case
             x = torch.from_numpy(xn).to(dev)
-            errs["flatpack"].append({"case": f"{label} B{b}", "max_abs_err": max_abs_err(
-                flat_fn(x), flat_forward_reference(flat_fn.ops, x))})
+            errs[flat_fn.launch_key].append({"case": f"{label} B{b}", "max_abs_err": max_abs_err(
+                flat_fn(x), flat_forward_reference(flat_fn.ops, x, requant))})
 
     def mega_check(g, label, start, batches, x=None):
         """Every segment of the fused (``start`` 0) or hybrid forward; the
@@ -745,6 +887,32 @@ def whole_network_checks(dev, rng) -> dict:
         flat_check(cg, f"conv_graph[:{max_layers}]", (64, 3), max_layers)
     flat_check(pw_edge_graph(rng), "pw_edge_graph", (64, 3, 0))
     flat_check(dw_edge_graph(rng), "dw_edge_graph", (64, 3, 0))
+    # the fixed-point epilogue (flat_kernel<true>) on every op path
+    for max_layers in (None, 2, 12):
+        flat_check(pd, f"person_detect[:{max_layers}]", (64, 3, 0), max_layers, "fixed")
+    for name in ("speech", "sine"):
+        flat_check(parse(model_path(name)), name, (64, 3, 0), requant="fixed")
+    flat_check(cg, "conv_graph", (64, 3), requant="fixed")
+    flat_check(pw_edge_graph(np.random.default_rng(0)), "pw_edge_graph", (64, 3, 0),
+               requant="fixed")
+    flat_check(dw_edge_graph(np.random.default_rng(0)), "dw_edge_graph", (64, 3, 0),
+               requant="fixed")
+    fixed_edges = {}
+    sweep = np.concatenate([np.arange(-128, 128), rng.integers(-128, 128, 768)]).astype(np.int8)
+    for spec in FIXED_EDGE_ACTS:
+        g = fixed_edge_graph(*spec)
+        flat_fn, _, _ = build_flat_kernel(g, requant="fixed", device=dev)
+        if [op.kind for op in flat_fn.ops] != ["pw", "pw"] or not pw_mma(
+                flat_fn.ops[1].in_shape, flat_fn.ops[1].out_shape):
+            raise AssertionError(f"{g.name}: its second op is not on the tensor-core path")
+        xn = rng.integers(-128, 128, (len(sweep), 4), dtype=np.int8)
+        xn[:, 0] = sweep
+        x = torch.from_numpy(xn).to(dev)
+        errs["flatpack_fixed"].append({"case": g.name, "max_abs_err": max_abs_err(
+            flat_fn(x), flat_forward_reference(flat_fn.ops, x, "fixed"))})
+        fixed_edges[g.name] = fixed_edge_counts(flat_fn.ops[1], sweep)
+        if not all(fixed_edges[g.name].values()):
+            raise AssertionError(f"{g.name} misses an edge: {fixed_edges[g.name]}")
     if mma_ops["person_detect[:None]"] != list(range(2, 27, 2)):
         raise AssertionError(f"person_detect's tensor-core 1x1 convs: "
                              f"{mma_ops['person_detect[:None]']}, expected layers 2-26")
@@ -797,6 +965,7 @@ def whole_network_checks(dev, rng) -> dict:
     if not corners["edge_c1_one"]:
         raise AssertionError("no lane of edge_c1_one on the exact2 corner")
     return {"checks": errs, "fma_sensitive_lanes": n_fma, "exact2_corner_lanes": corners,
+            "fixed_edge_counts": fixed_edges,
             "mma_ops": {k: len(v) for k, v in mma_ops.items()},
             "dw3_ops": {k: len(v) for k, v in dw3_ops.items()},
             "mega_paths": {k: count_paths(v) for k, v in mega_paths.items()}}
@@ -937,6 +1106,13 @@ def time_whole_network(dev, rng) -> dict:
                                           dtype=np.int8)).to(dev)
         res[f"flatpack_{name}"] = timed(flat_fn, lambda v: flat_forward_reference(flat_fn.ops, v),
                                         x, *flat_bound(flat_fn.ops, 8192))
+        if name == "person_detect":  # the fixed epilogue on the same input, in the same call
+            fixed_fn, _, _ = build_flat_kernel(parse(model_path(name)), requant="fixed",
+                                               device=dev)
+            res["flatpack_fixed_person_detect"] = timed(
+                fixed_fn, lambda v: flat_forward_reference(fixed_fn.ops, v, "fixed"), x,
+                *flat_bound(fixed_fn.ops, 8192))
+            res["flatpack_person_detect"]["ms_after_fixed"] = time_ms(lambda: flat_fn(x), 20)
         del x
         torch.cuda.empty_cache()
     col_fn, meta = build_col_kernel(parse(model_path("sine")), device=dev)
@@ -994,11 +1170,20 @@ def main() -> int:
 
     t = time.time()
     paths = build.build_all()
-    ptxas = {}
+    ptxas, usage = {}, {}
     for name, path in paths.items():
         with open(path + ".log") as f:
-            ptxas[name] = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": round(time.time() - t, 3), "ptxas": ptxas})
+            log = f.read().splitlines()
+        ptxas[name] = [ln.strip() for ln in log if "registers" in ln or "spill" in ln]
+        usage.update(ptxas_usage(log))
+    emit({"phase": "build", "seconds": round(time.time() - t, 3), "ptxas": ptxas,
+          "ptxas_by_function": usage})
+    # the exact2 flat kernel and the megakernel keep their budget: no stack,
+    # no spills within __launch_bounds__(256, 4)'s 64 registers
+    for key in ("flat_kernelILb0E", "segment_kernel"):
+        (fn,) = [u for f, u in usage.items() if key in f]
+        if fn["registers"] > 64 or fn["stack"] or fn["spill_stores"] or fn["spill_loads"]:
+            raise AssertionError(f"{key}: {fn}")
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(0)
@@ -1020,6 +1205,7 @@ def main() -> int:
                                   for k, v in whole_net["checks"].items()},
           "fma_sensitive_lanes": whole_net["fma_sensitive_lanes"],
           "exact2_corner_lanes": whole_net["exact2_corner_lanes"],
+          "fixed_edge_counts": whole_net["fixed_edge_counts"],
           "flatpack_mma_sync_ops": whole_net["mma_ops"],
           "flatpack_3x3_depthwise_ops": whole_net["dw3_ops"],
           "megakernel_paths": whole_net["mega_paths"]})
@@ -1104,14 +1290,39 @@ def main() -> int:
     if paths["fused/speech"] != {"megakernel": 8}:
         raise AssertionError(f"fused speech path launched {paths['fused/speech']}, expected 2 "
                              "megakernel launches a forward (4 requests)")
+    # the fixed-point epilogue, through the builder's door to it (as in the
+    # JAX package): the 4 person_detect requests (their distance from xla is
+    # printed: on image-like inputs the (M, S) form reaches 4 LSB, as the JAX
+    # kernel's own bits do); then the JAX package's gate for the mode
+    # (tests/test_flatpack.py: its 8 random int8 samples, from seed 17,
+    # within 2 LSB of xla)
+    with flat_requant("fixed"):
+        m = compile_tflite(model_path("person_detect"), name="person_detect", backend="auto")
+    outs, paths["auto/fixed"] = drive(m, pd_reqs)
+    if paths["auto/fixed"] != {"flatpack_fixed": 4}:
+        raise AssertionError(f"fixed person_detect path launched {paths['auto/fixed']}, "
+                             "expected 4 launches of the fixed flat kernel and no other")
+    mx = compile_tflite(model_path("person_detect"), name="person_detect", backend="xla")
+    scale = float(mx.graph.output_q.scale0)
+    request_lsb = [int(torch.round((o - mx.predict(r)).abs().max() / scale).item())
+                   for o, r in zip(outs, pd_reqs)]
+    xg = torch.from_numpy(np.random.default_rng(17).integers(-128, 128, (8, 96, 96, 1),
+                                                             dtype=np.int8)).to(dev)
+    fixed_lsb = int((m.predict_inner(xg).to(torch.int32)
+                     - mx.predict_inner(xg).to(torch.int32)).abs().max().item())
+    if fixed_lsb > 2:
+        raise AssertionError(f"fixed person_detect is {fixed_lsb} LSB from xla on the JAX "
+                             "package's gate samples (gate: 2)")
     launches = {"qgemm": paths["pallas"]["qgemm"], "qdwconv": paths["pallas"]["qdwconv"],
                 "flatpack": paths["flat"]["flatpack"], "colfc": paths["colfc"]["colfc"],
-                "megakernel": paths["fused"]["megakernel"], "packed": paths["packed"]["packed"]}
+                "megakernel": paths["fused"]["megakernel"], "packed": paths["packed"]["packed"],
+                "flatpack_fixed": paths["auto/fixed"]["flatpack_fixed"]}
     emit({"phase": "main_path", "goldens_bit_exact": goldens, "launches_by_path": paths,
-          "requests": 4})
+          "requests": 4, "fixed_requests_vs_xla_lsb": request_lsb,
+          "fixed_gate_samples_vs_xla_lsb": fixed_lsb, "fixed_gate_lsb": 2})
 
     # 5. whole model: the kernel backends vs the plain torch ops on the card
-    whole = {}
+    whole, fixed_whole = {}, {}
     for name in MODELS:
         mx = compile_tflite(model_path(name), name=name, backend="xla")
         xq = random_input(mx, 1024, rng)
@@ -1121,11 +1332,26 @@ def main() -> int:
             yk = compile_tflite(model_path(name), name=name, backend=backend).predict_inner(xq)
             whole[f"{name}/{backend}"] = {"shape": list(yk.shape),
                                           "max_abs_err": max_abs_err(yk, yx)}
+        if name != "sine":
+            # flat + fixed against its plain version; its distance from xla
+            # is printed, not gated
+            with flat_requant("fixed"):
+                mf = compile_tflite(model_path(name), name=name, backend="flat")
+            yk = mf.predict_inner(xq)
+            fn, _, _ = build_flat_kernel(mf.graph, requant="fixed", device=dev)
+            ref = flat_forward_reference(fn.ops, xq.reshape(xq.shape[0], -1), "fixed")
+            dev_xla = (yk.to(torch.int32) - yx.to(torch.int32)).abs()
+            fixed_whole[f"{name}/flat+fixed"] = {
+                "shape": list(yk.shape), "max_abs_err": max_abs_err(yk.reshape(ref.shape), ref),
+                "vs_xla_max_lsb": int(dev_xla.max().item()),
+                "vs_xla_outputs_differing": int((dev_xla > 0).sum().item()),
+                "outputs": int(dev_xla.numel())}
         del mx
     torch.cuda.empty_cache()
-    emit({"phase": "whole_model_vs_plain", "batch": 1024, **whole})
-    if any(v["max_abs_err"] for v in whole.values()):
-        raise AssertionError(f"a kernel backend differs from the plain backend: {whole}")
+    emit({"phase": "whole_model_vs_plain", "batch": 1024, **whole, **fixed_whole})
+    if any(v["max_abs_err"] for v in list(whole.values()) + list(fixed_whole.values())):
+        raise AssertionError(f"a kernel backend differs from the plain backend: {whole} "
+                             f"{fixed_whole}")
 
     # 6. throughput, flat and pallas in turns on one card
     thr = {}
@@ -1144,6 +1370,20 @@ def main() -> int:
             del xq
             torch.cuda.empty_cache()
     del models
+    # the flat kernel's exact2 and fixed epilogues in turns
+    with flat_requant("fixed"):
+        fixed_model = compile_tflite(model_path("person_detect"), name="person_detect",
+                                     backend="flat")
+    models = {"exact2": compile_tflite(model_path("person_detect"), name="person_detect",
+                                       backend="flat"), "fixed": fixed_model}
+    xq = random_input(models["exact2"], 8192, rng)
+    runs = {"exact2": [], "fixed": []}
+    for mode in ("exact2", "fixed", "fixed", "exact2"):
+        mb = models[mode]
+        runs[mode].append(time_ms(lambda: mb.predict_inner(xq), 10, warmup=2))
+    thr["person_detect/8192/flat_requant"] = {k: {"ms_per_batch": v, "inferences_per_s": [
+        8192 / ms * 1e3 for ms in v]} for k, v in runs.items()}
+    del models, fixed_model, xq
     for backend in ("fused", "hybrid", "packed"):
         mb = compile_tflite(model_path("person_detect"), name="person_detect", backend=backend)
         xq = random_input(mb, 8192, rng)
@@ -1152,11 +1392,13 @@ def main() -> int:
                                                 "inferences_per_s": 8192 / ms * 1e3}
         del xq
     torch.cuda.empty_cache()
-    emit({"phase": "throughput", "order": "flat, pallas, pallas, flat; then fused, hybrid, packed",
+    emit({"phase": "throughput", "order": "flat, pallas, pallas, flat; then person_detect's flat "
+          "exact2, fixed, fixed, exact2; then fused, hybrid, packed",
           "device": smi, "clocks_power": nvidia_smi("clocks.sm,power.draw,power.limit"), **thr})
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
 
     per_kernel = {**timing, "flatpack": timing_whole["flatpack_person_detect"],
+                  "flatpack_fixed": timing_whole["flatpack_fixed_person_detect"],
                   "colfc": timing_whole["colfc_sine"],
                   "megakernel": timing_whole["megakernel_person_detect"],
                   "packed": timing_whole["packed_person_detect"]}

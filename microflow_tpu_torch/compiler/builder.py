@@ -27,7 +27,11 @@ Backends (the JAX package's names, so callers pass the same strings):
   production path; the layers after the prefix (none for the bundled
   models) run as ``"pallas"`` on CUDA and as the plain ops on the CPU.
   Like the JAX package's, the kernel reads weights baked into its plan at
-  build.  int8 graphs only.
+  build.  int8 graphs only.  ``MFT_FLAT_REQUANT`` picks its epilogue, as
+  in the JAX package: ``exact2`` (the default), ``exact`` or ``fixed`` (the
+  integer (M, S) requant of ``core/fixedpoint.py``).  Where the plan refuses
+  ``fixed`` (some ``d + bias_q`` leaves int32), ``"flat"`` and ``"auto"``
+  raise ``ValueError``; the JAX package's ``"auto"`` falls back to XLA.
 * ``"pallas"`` -- FullyConnected and Conv2D through the ``qgemm`` kernel,
   DepthwiseConv2D through ``qdwconv`` (hand-written CUDA for Hopper); pool,
   reshape, softmax and quantize stay plain torch, as they are plain array
@@ -64,6 +68,8 @@ JAX package.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -397,7 +403,8 @@ class CompiledModel:
         if self.backend == "flat":
             from ..kernels.flatpack import kernel_from_plan
 
-            self._flat = kernel_from_plan(plan, device=self.device)
+            self._flat = kernel_from_plan(plan, os.environ.get("MFT_FLAT_REQUANT", "exact2"),
+                                          device=self.device)
             per_op_layers = graph.layers[self._flat[1]:]
         elif self.backend == "packed":
             from ..kernels.packed import PackedKernel

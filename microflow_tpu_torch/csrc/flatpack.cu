@@ -30,7 +30,9 @@
 // Every read stays in bounds: a tap outside the input is skipped, or reads
 // in_zp in place of the input (either way it adds (in_zp - in_zp) * w = 0,
 // as in the reference), where the TPU kernel read past the row into its
-// tile padding.  Epilogues: csrc/epilogue.cuh.
+// tile padding.  Epilogues: csrc/epilogue.cuh; flat_kernel<true> is the
+// TPU kernel's requant="fixed", the integer (M, S) epilogue on every op path
+// (its plan: F_EXACT = R_FIXED, bias_q and m in the F_BIAS and F_C1 words).
 
 #include "segment_ops.cuh"
 
@@ -41,6 +43,7 @@ enum { K_DW, K_CONV, K_PW, K_FC, K_POOL, K_SOFTMAX };
 // Depthwise conv, one output a thread (the general case); output channel c
 // reads input channel c, or channel 0 when the input has fewer channels
 // (the depth-multiplier fallback).
+template <bool kFixed>
 __device__ void op_dw(const Op& op, const int8_t* src, int8_t* dst) {
   const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
   const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
@@ -50,6 +53,7 @@ __device__ void op_dw(const Op& op, const int8_t* src, int8_t* dst) {
   const int8_t* w = op.at<int8_t>(F_W);  // [KH][KW][OC]
   const float* b0 = op.at<float>(F_BIAS);
   const float* c1 = op.at<float>(F_C1);
+  const Fixed fx = kFixed ? Fixed(op) : Fixed();
   const int total = oh * ow * oc;
   for (int e = threadIdx.x; e < total; e += kThreads) {
     const int c = e % oc, p = e / oc;
@@ -65,11 +69,13 @@ __device__ void op_dw(const Op& op, const int8_t* src, int8_t* dst) {
         acc += ((int)src[(r * iw + q) * ic + ci] - zp) * (int)__ldg(w + (dh * kw + dw) * oc + c);
       }
     }
-    dst[e] = requant(acc, __ldg(b0 + c), __ldg(c1 + c), lo, hi, exact);
+    dst[e] = kFixed ? fx(acc, __ldg(b0 + c), __ldg(c1 + c))
+                    : requant(acc, __ldg(b0 + c), __ldg(c1 + c), lo, hi, exact);
   }
 }
 
 // Any Conv2D: filters [OC][KH][KW][IC].
+template <bool kFixed>
 __device__ void op_conv(const Op& op, const int8_t* src, int8_t* dst) {
   const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
   const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
@@ -79,6 +85,7 @@ __device__ void op_conv(const Op& op, const int8_t* src, int8_t* dst) {
   const int8_t* w = op.at<int8_t>(F_W);
   const float* b0 = op.at<float>(F_BIAS);
   const float* c1 = op.at<float>(F_C1);
+  const Fixed fx = kFixed ? Fixed(op) : Fixed();
   const int total = oh * ow * oc;
   for (int e = threadIdx.x; e < total; e += kThreads) {
     const int f = e % oc, p = e / oc;
@@ -95,12 +102,14 @@ __device__ void op_conv(const Op& op, const int8_t* src, int8_t* dst) {
         for (int ci = 0; ci < ic; ++ci) acc += ((int)xs[ci] - zp) * (int)__ldg(ws + ci);
       }
     }
-    dst[e] = requant(acc, __ldg(b0 + f), __ldg(c1 + f), lo, hi, exact);
+    dst[e] = kFixed ? fx(acc, __ldg(b0 + f), __ldg(c1 + f))
+                    : requant(acc, __ldg(b0 + f), __ldg(c1 + f), lo, hi, exact);
   }
 }
 
 // 1x1 conv (any stride) over IC % 4 == 0 channels: raw int8 dot by __dp4a
 // plus d[f] = -in_zp * colsum.  Weights are [IC/4][OC] words.
+template <bool kFixed>
 __device__ void op_pw(const Op& op, const int8_t* src, int8_t* dst) {
   const int iw = op[F_IW], ic = op[F_IC];
   const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
@@ -110,6 +119,7 @@ __device__ void op_pw(const Op& op, const int8_t* src, int8_t* dst) {
   const int* d = op.at<int>(F_D);
   const float* b0 = op.at<float>(F_BIAS);
   const float* c1 = op.at<float>(F_C1);
+  const Fixed fx = kFixed ? Fixed(op) : Fixed();
   const int k4 = ic >> 2;
   if ((oc & 3) == 0) {
     // four output channels a thread: one x word feeds four __dp4a, and the
@@ -134,8 +144,11 @@ __device__ void op_pw(const Op& op, const int8_t* src, int8_t* dst) {
       uint32_t packed = 0;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        packed |= (uint32_t)(uint8_t)requant(acc[j] + __ldg(d + c + j), __ldg(b0 + c + j),
-                                             __ldg(c1 + c + j), lo, hi, exact)
+        packed |= (uint32_t)(uint8_t)(kFixed ? fx(acc[j] + __ldg(d + c + j), __ldg(b0 + c + j),
+                                                  __ldg(c1 + c + j))
+                                               : requant(acc[j] + __ldg(d + c + j),
+                                                         __ldg(b0 + c + j), __ldg(c1 + c + j),
+                                                         lo, hi, exact))
                   << (8 * j);
       *reinterpret_cast<uint32_t*>(dst + p * oc + c) = packed;
     }
@@ -147,19 +160,22 @@ __device__ void op_pw(const Op& op, const int8_t* src, int8_t* dst) {
       const int* xw = reinterpret_cast<const int*>(src + ip * ic);
       int acc = 0;
       for (int k = 0; k < k4; ++k) acc = __dp4a(xw[k], __ldg(w4 + k * oc + c), acc);
-      dst[e] = requant(acc + __ldg(d + c), __ldg(b0 + c), __ldg(c1 + c), lo, hi, exact);
+      dst[e] = kFixed ? fx(acc + __ldg(d + c), __ldg(b0 + c), __ldg(c1 + c))
+                      : requant(acc + __ldg(d + c), __ldg(b0 + c), __ldg(c1 + c), lo, hi, exact);
     }
   }
 }
 
 // FullyConnected: one warp an output, lanes over K, then a shuffle sum
 // (integer, so the order does not matter).  Weights are [N][K].
+template <bool kFixed>
 __device__ void op_fc(const Op& op, const int8_t* src, int8_t* dst) {
   const int K = op[F_IN], N = op[F_OUT], zp = op[F_ZP], exact = op[F_EXACT];
   const float lo = (float)op[F_LO], hi = (float)op[F_HI];
   const int8_t* w = op.at<int8_t>(F_W);
   const float* b0 = op.at<float>(F_BIAS);
   const float* c1 = op.at<float>(F_C1);
+  const Fixed fx = kFixed ? Fixed(op) : Fixed();
   const int lane = threadIdx.x & 31;
   for (int n = threadIdx.x >> 5; n < N; n += kThreads / 32) {
     const int8_t* wr = w + (size_t)n * K;
@@ -167,7 +183,9 @@ __device__ void op_fc(const Op& op, const int8_t* src, int8_t* dst) {
     for (int k = lane; k < K; k += 32) acc += ((int)src[k] - zp) * (int)__ldg(wr + k);
 #pragma unroll
     for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-    if (lane == 0) dst[n] = requant(acc, __ldg(b0 + n), __ldg(c1 + n), lo, hi, exact);
+    if (lane == 0)
+      dst[n] = kFixed ? fx(acc, __ldg(b0 + n), __ldg(c1 + n))
+                      : requant(acc, __ldg(b0 + n), __ldg(c1 + n), lo, hi, exact);
   }
 }
 
@@ -188,6 +206,7 @@ __device__ void op_softmax(const Op& op, const int8_t* src, int8_t* dst) {
   }
 }
 
+template <bool kFixed>
 __global__ void __launch_bounds__(kThreads, 4)
     flat_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, long long B,
                 const unsigned char* __restrict__ plan, int n_ops, int in_elems, int out_elems,
@@ -197,20 +216,20 @@ __global__ void __launch_bounds__(kThreads, 4)
              switch (op[F_KIND]) {
                case K_DW:
                  switch (op[F_DW3]) {
-                   case DW3_S1: op_dw3<1>(op, src, dst); break;
-                   case DW3_S2: op_dw3<2>(op, src, dst); break;
-                   case DW3_STEM: op_dw3_stem(op, src, dst); break;
+                   case DW3_S1: op_dw3<1, kFixed>(op, src, dst); break;
+                   case DW3_S2: op_dw3<2, kFixed>(op, src, dst); break;
+                   case DW3_STEM: op_dw3_stem<kFixed>(op, src, dst); break;
                    default:
-                     if (op[F_VEC]) op_dw_vec(op, src, dst);
-                     else op_dw(op, src, dst);
+                     if (op[F_VEC]) op_dw_vec<kFixed>(op, src, dst);
+                     else op_dw<kFixed>(op, src, dst);
                  }
                  break;
-               case K_CONV: op_conv(op, src, dst); break;
+               case K_CONV: op_conv<kFixed>(op, src, dst); break;
                case K_PW:
-                 if (op[F_MMA]) op_pw_mma(op, src, dst);
-                 else op_pw(op, src, dst);
+                 if (op[F_MMA]) op_pw_mma<kFixed>(op, src, dst);
+                 else op_pw<kFixed>(op, src, dst);
                  break;
-               case K_FC: op_fc(op, src, dst); break;
+               case K_FC: op_fc<kFixed>(op, src, dst); break;
                case K_POOL: op_pool(op, src, dst); break;
                default: op_softmax(op, src, dst); break;
              }
@@ -220,12 +239,17 @@ __global__ void __launch_bounds__(kThreads, 4)
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  plan: the device buffer of
-// kernels/flatpack.py::pack_plan; smem_a/smem_b: its two buffer sizes.
-// Returns the CUDA error code (0 on success); a launch the card refuses,
-// for too much shared memory for example, returns its error here.
+// kernels/flatpack.py::pack_plan; smem_a/smem_b: its two buffer sizes;
+// fixed: 1 for a plan packed with requant="fixed" (flat_kernel<true>), else
+// 0.  Returns the CUDA error code (0 on success); a launch the card
+// refuses, for too much shared memory for example, returns its error here.
 extern "C" int mf_flatpack(const void* x, void* out, long long B, const void* plan, int n_ops,
-                           int in_elems, int out_elems, int smem_a, int smem_b, void* stream) {
+                           int in_elems, int out_elems, int smem_a, int smem_b, int fixed,
+                           void* stream) {
   if (B <= 0 || n_ops <= 0 || in_elems <= 0 || out_elems <= 0) return (int)cudaErrorInvalidValue;
-  return launch_plan(flat_kernel, x, out, B, plan, n_ops, in_elems, out_elems, smem_a, smem_b,
-                     stream);
+  if (fixed)
+    return launch_plan(flat_kernel<true>, x, out, B, plan, n_ops, in_elems, out_elems, smem_a,
+                       smem_b, stream);
+  return launch_plan(flat_kernel<false>, x, out, B, plan, n_ops, in_elems, out_elems, smem_a,
+                     smem_b, stream);
 }

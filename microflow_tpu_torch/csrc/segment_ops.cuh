@@ -48,7 +48,10 @@
 // all of c's taps removes it again, so the sum is sum over in-bounds taps
 // (x - in_zp) * w, as in the reference.  Epilogues: epilogue.cuh, the
 // rounding chosen per op by F_EXACT (round half away from zero, or
-// exact2).
+// exact2).  The flat kernel's fixed-point instantiation (kFixed, F_EXACT =
+// R_FIXED in its plan) takes the (M, S) epilogue on every path instead: an
+// op's F_BIAS words then hold bias_q as i32 and its F_C1 words m = M * 2^-S;
+// the megakernel never instantiates it.
 
 #pragma once
 
@@ -67,6 +70,7 @@ enum {
   F_DW3, F_WZP
 };
 enum { DW3_NONE, DW3_S1, DW3_S2, DW3_STEM };  // F_DW3: which 3x3 depthwise path
+enum { R_EXACT2, R_EXACT, R_FIXED };  // F_EXACT: the epilogue of a conv, dw or fc op
 constexpr int DW_STRIP = 3;    // output pixels a work item of op_dw3
 constexpr int STEM_STRIP = 4;  // output pixels a work item of op_dw3_stem
 // The most elements a tensor of an F_MMA or F_DW3 op may have: Div16's
@@ -89,6 +93,34 @@ __device__ __forceinline__ int8_t requant(int acc, float b0, float c1, float lo,
   return exact ? mf_round_away(y, lo, hi) : mf_exact2(y, lo, hi);
 }
 
+// One output of epilogue kMode (R_EXACT2, R_EXACT or R_FIXED) from the
+// accumulator and the channel's F_BIAS and F_C1 words; for R_FIXED, lo and
+// hi are the bounds less zp (Fixed).
+template <int kMode>
+__device__ __forceinline__ int8_t epilogue(int acc, float b0, float c1, float lo, float hi,
+                                           int zp) {
+  if constexpr (kMode == R_FIXED) {
+    return mf_fixed(acc + __float_as_int(b0), c1, zp, lo, hi);
+  } else {
+    const float y = mf_affine(b0, c1, acc);
+    return kMode == R_EXACT ? mf_round_away(y, lo, hi) : mf_exact2(y, lo, hi);
+  }
+}
+
+// An op's fixed-point epilogue: out_zp and the clip bounds less out_zp,
+// loaded once; (acc, the channel's F_BIAS and F_C1 words) -> int8.  The sum
+// acc + bias_q wraps in i32, as the TPU kernel's acc + (d + bias_q).
+struct Fixed {
+  int zp = 0;
+  float lo = 0.0f, hi = 0.0f;
+  Fixed() = default;
+  __device__ explicit Fixed(const Op& op)
+      : zp(op[F_OUTZP]), lo((float)(op[F_LO] - zp)), hi((float)(op[F_HI] - zp)) {}
+  __device__ int8_t operator()(int acc, float bias_q, float m) const {
+    return epilogue<R_FIXED>(acc, bias_q, m, lo, hi, zp);
+  }
+};
+
 // Transpose a 4x4 block of bytes: word j of t holds tap j's four channels;
 // word c of w gets channel c's four taps, ready for __dp4a.
 __device__ __forceinline__ void transpose4(const uint32_t (&t)[4], uint32_t (&w)[4]) {
@@ -108,6 +140,7 @@ __device__ __forceinline__ void transpose4(const uint32_t (&t)[4], uint32_t (&w)
 // four taps each.  A tap outside the input reads in_zp, and d[c] =
 // -in_zp * sum of all taps' w removes it again: the sum is then
 // sum over in-bounds taps (x - in_zp) * w, exactly.
+template <bool kFixed = false>
 __device__ void op_dw_vec(const Op& op, const int8_t* src, int8_t* dst) {
   const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
   const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
@@ -118,6 +151,7 @@ __device__ void op_dw_vec(const Op& op, const int8_t* src, int8_t* dst) {
   const int groups = oc >> 2, g = threadIdx.x % groups, c0 = 4 * g;
   const int taps = kh * kw, n4 = (taps + 3) >> 2;
   const int4* w4 = op.at<int4>(F_W) + g;
+  const Fixed fx = kFixed ? Fixed(op) : Fixed();
   int d[4];
   float b0[4], c1[4];
 #pragma unroll
@@ -161,7 +195,9 @@ __device__ void op_dw_vec(const Op& op, const int8_t* src, int8_t* dst) {
     uint32_t packed = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      packed |= (uint32_t)(uint8_t)requant(acc[j] + d[j], b0[j], c1[j], lo, hi, exact) << (8 * j);
+      packed |= (uint32_t)(uint8_t)(kFixed ? fx(acc[j] + d[j], b0[j], c1[j])
+                                           : requant(acc[j] + d[j], b0[j], c1[j], lo, hi, exact))
+                << (8 * j);
     *reinterpret_cast<uint32_t*>(dst + p * oc + c0) = packed;
   }
 }
@@ -214,24 +250,21 @@ struct Div16 {
   }
 };
 
-// op_pw_mma's epilogue, the rounding chosen once per item, not per
-// output: a lane's accumulators hold pixels p0 + 8j + i (i = 0, 1) of
-// output channels r0 (registers 0, 1) and r0 + 8 (registers 2, 3).
-template <bool kExact>
+// op_pw_mma's epilogue, chosen once per item, not per output: a lane's
+// accumulators hold pixels p0 + 8j + i (i = 0, 1) of output channels r0
+// (registers 0, 1) and r0 + 8 (registers 2, 3).
+template <int kMode>
 __device__ __forceinline__ void store_tiles(const int (&acc)[NT][4], int8_t* dst, int p0, int np,
                                             int oc, int r0, float b0g, float b0h, float c1g,
-                                            float c1h, float lo, float hi) {
-  const auto rnd = [&](float y) {
-    return kExact ? mf_round_away(y, lo, hi) : mf_exact2(y, lo, hi);
-  };
+                                            float c1h, float lo, float hi, int zp) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int p = p0 + 8 * j + i;
       if (p < np) {
-        dst[p * oc + r0] = rnd(mf_affine(b0g, c1g, acc[j][i]));
-        dst[p * oc + r0 + 8] = rnd(mf_affine(b0h, c1h, acc[j][2 + i]));
+        dst[p * oc + r0] = epilogue<kMode>(acc[j][i], b0g, c1g, lo, hi, zp);
+        dst[p * oc + r0 + 8] = epilogue<kMode>(acc[j][2 + i], b0h, c1h, lo, hi, zp);
       }
     }
   }
@@ -248,6 +281,7 @@ __device__ __forceinline__ void store_tiles(const int (&acc)[NT][4], int8_t* dst
 // second); else one unit covers the last <= 32 and lane t reads channels
 // kb+8t..kb+8t+7.  The plan puts the weights of the same channels in the
 // same lanes.  Every loop is warp-uniform, as mma.sync needs.
+template <bool kFixed = false>
 __device__ void op_pw_mma(const Op& op, const int8_t* src, int8_t* dst) {
   const int iw = op[F_IW], ic = op[F_IC];
   const int ow = op[F_OW], oc = op[F_OC], np = op[F_OH] * ow;
@@ -261,6 +295,7 @@ __device__ void op_pw_mma(const Op& op, const int8_t* src, int8_t* dst) {
   const float* b0 = op.at<float>(F_BIAS);
   const float* c1 = op.at<float>(F_C1);
   const Div16 by_chunks(chunks), by_ow(ow);
+  const Fixed fx = kFixed ? Fixed(op) : Fixed();
   for (int item = threadIdx.x >> 5; item < (oc >> 4) * chunks; item += kThreads / 32) {
     const int m = by_chunks(item), n0 = (item - m * chunks) * (8 * NT);
     const int r0 = 16 * m + g;  // this lane's output channels: r0 and r0 + 8
@@ -302,15 +337,20 @@ __device__ void op_pw_mma(const Op& op, const int8_t* src, int8_t* dst) {
     }
     const float b0g = __ldg(b0 + r0), b0h = __ldg(b0 + r0 + 8);
     const float c1g = __ldg(c1 + r0), c1h = __ldg(c1 + r0 + 8);
-    if (exact) store_tiles<true>(acc, dst, n0 + 2 * t, np, oc, r0, b0g, b0h, c1g, c1h, lo, hi);
-    else store_tiles<false>(acc, dst, n0 + 2 * t, np, oc, r0, b0g, b0h, c1g, c1h, lo, hi);
+    if (kFixed)
+      store_tiles<R_FIXED>(acc, dst, n0 + 2 * t, np, oc, r0, b0g, b0h, c1g, c1h, fx.lo, fx.hi,
+                           fx.zp);
+    else if (exact)
+      store_tiles<R_EXACT>(acc, dst, n0 + 2 * t, np, oc, r0, b0g, b0h, c1g, c1h, lo, hi, 0);
+    else store_tiles<R_EXACT2>(acc, dst, n0 + 2 * t, np, oc, r0, b0g, b0h, c1g, c1h, lo, hi, 0);
   }
 }
 
 // A 3x3 depthwise op's constants for channel group g (channels 4g..4g+3),
 // loaded once per op: w[dh][j] = channel 4g+j's taps (dh, 0), (dh, 1),
 // (dh, 2) as one word, low byte first, high byte 0 (the plan's [3][C]
-// words); d = -in_zp * the sum of all nine taps; bias0; c1.
+// words); d = -in_zp * the sum of all nine taps; the F_BIAS and F_C1 words
+// (bias0 and c1, or bias_q and m).
 struct Dw3Consts {
   int w[3][4], d[4];
   float b0[4], c1[4];
@@ -329,20 +369,18 @@ struct Dw3Consts {
 };
 
 // A strip's epilogue: output pixel o of the strip (o < n) is the word of
-// channels 4g..4g+3 at dst + o * c; the rounding is chosen once per item.
-template <bool kExact, int S>
+// channels 4g..4g+3 at dst + o * c; the epilogue is chosen once per item.
+template <int kMode, int S>
 __device__ __forceinline__ void store_strip(const int (&acc)[S][4], int8_t* dst, int n, int c,
-                                            const Dw3Consts& k, float lo, float hi) {
-  const auto rnd = [&](float y) {
-    return kExact ? mf_round_away(y, lo, hi) : mf_exact2(y, lo, hi);
-  };
+                                            const Dw3Consts& k, float lo, float hi, int zp) {
 #pragma unroll
   for (int o = 0; o < S; ++o) {
     if (o < n) {
       uint32_t packed = 0;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        packed |= (uint32_t)(uint8_t)rnd(mf_affine(k.b0[j], k.c1[j], acc[o][j])) << (8 * j);
+        packed |= (uint32_t)(uint8_t)epilogue<kMode>(acc[o][j], k.b0[j], k.c1[j], lo, hi, zp)
+                  << (8 * j);
       *reinterpret_cast<uint32_t*>(dst + o * c) = packed;
     }
   }
@@ -362,7 +400,7 @@ __device__ __forceinline__ void store_strip(const int (&acc)[S][4], int8_t* dst,
 // channel.  At stride 1 the word of columns q..q+3 serves output q with the
 // taps (w0, w1, w2, 0) and output q + 1 with (0, w0, w1, w2); at stride 2
 // word i serves output i.  The sums are op_dw_vec's, so are the bits.
-template <int SD>
+template <int SD, bool kFixed = false>
 __device__ void op_dw3(const Op& op, const int8_t* src, int8_t* dst) {
   constexpr int S = DW_STRIP;
   constexpr int NX = SD == 1 ? S + 2 : 2 * S + 1;  // input columns of a strip
@@ -373,6 +411,7 @@ __device__ void op_dw3(const Op& op, const int8_t* src, int8_t* dst) {
   const uint32_t zpw = __byte_perm((uint32_t)op[F_ZP], 0, 0x0000);
   const int groups = c >> 2, g = threadIdx.x % groups;
   const Dw3Consts k(op, g, groups);
+  const Fixed fx = kFixed ? Fixed(op) : Fixed();
   const int ns = (ow + S - 1) / S;  // strips a row
   const Div16 by_ns(ns);
   const int8_t* sg = src + 4 * g;
@@ -425,8 +464,9 @@ __device__ void op_dw3(const Op& op, const int8_t* src, int8_t* dst) {
       }
     }
     int8_t* out = dst + (oy * ow + ox) * c + 4 * g;
-    if (exact) store_strip<true>(acc, out, ow - ox, c, k, lo, hi);
-    else store_strip<false>(acc, out, ow - ox, c, k, lo, hi);
+    if (kFixed) store_strip<R_FIXED>(acc, out, ow - ox, c, k, fx.lo, fx.hi, fx.zp);
+    else if (exact) store_strip<R_EXACT>(acc, out, ow - ox, c, k, lo, hi, 0);
+    else store_strip<R_EXACT2>(acc, out, ow - ox, c, k, lo, hi, 0);
   }
 }
 
@@ -439,6 +479,7 @@ __device__ void op_dw3(const Op& op, const int8_t* src, int8_t* dst) {
 // in_zp).  Every channel reads the same byte, so the word of output 4s+j's
 // columns, bytes 8s-1+2j .. 8s+2+2j (the last, of weight 0, any byte),
 // is one byte permutation and no transpose, and serves four __dp4a.
+template <bool kFixed = false>
 __device__ void op_dw3_stem(const Op& op, const int8_t* src, int8_t* dst) {
   constexpr int S = STEM_STRIP;
   const int ih = op[F_IH], iw = op[F_IW], c = op[F_OC], oh = op[F_OH], ow = op[F_OW];
@@ -447,6 +488,7 @@ __device__ void op_dw3_stem(const Op& op, const int8_t* src, int8_t* dst) {
   const uint32_t zpw = __byte_perm((uint32_t)op[F_ZP], 0, 0x0000);
   const int groups = c >> 2, g = threadIdx.x % groups;
   const Dw3Consts k(op, g, groups);
+  const Fixed fx = kFixed ? Fixed(op) : Fixed();
   const int ns = (ow + S - 1) / S;
   const Div16 by_ns(ns);
   for (int it = threadIdx.x / groups; it < oh * ns; it += kThreads / groups) {
@@ -477,8 +519,9 @@ __device__ void op_dw3_stem(const Op& op, const int8_t* src, int8_t* dst) {
         for (int j = 0; j < 4; ++j) acc[o][j] = __dp4a((int)xw[o], k.w[dh][j], acc[o][j]);
     }
     int8_t* out = dst + (oy * ow + ox) * c + 4 * g;
-    if (exact) store_strip<true>(acc, out, ow - ox, c, k, lo, hi);
-    else store_strip<false>(acc, out, ow - ox, c, k, lo, hi);
+    if (kFixed) store_strip<R_FIXED>(acc, out, ow - ox, c, k, fx.lo, fx.hi, fx.zp);
+    else if (exact) store_strip<R_EXACT>(acc, out, ow - ox, c, k, lo, hi, 0);
+    else store_strip<R_EXACT2>(acc, out, ow - ox, c, k, lo, hi, 0);
   }
 }
 

@@ -31,7 +31,11 @@ association order):
   ("pw") takes the raw int8 dot plus a per-channel ``d``.  Then
   ``y = bias0[c] + c1[c] * f32(acc)`` (multiply, then add) and
   ``exact2`` = ``clip(trunc(y + (y >= 0 ? 0.5 : -0.5)), lo, hi)``, or
-  ``exact`` = ``clip(round_away(y), lo, hi)``.
+  ``exact`` = ``clip(round_away(y), lo, hi)``; or ``fixed``, the integer
+  (M, S) requant of ``core/fixedpoint.py``: ``q = acc + bias_q[c]`` in i32
+  (wrapping, as the TPU kernel's ``acc + (d + bias_q)``), ``p = f32(q) *
+  m[c]`` with ``m = M * 2**-S``, ``t = trunc(p + (p >= 0 ? 0.5 : -0.5))``,
+  then ``clip(t + out_zp, lo, hi)``.
 * pool: ``y = c0 * (recip[p] * f32(sum))`` then ``+ c1``, round away,
   clip; the window sum uses true zeros outside the input.
 * softmax: ``e = f32(q) * in_s``, ``expf``, the total summed left to
@@ -60,6 +64,7 @@ from ..compiler.ir import (
     SoftmaxLayer,
 )
 from ..core.activation import activation_bounds
+from ..core.fixedpoint import derive_bias_q, multiplier_scale
 from ..core.numerics import broadcast_per_channel, f32, round_away
 from ..core.tensor import ViewGeometry, pad_nhwc
 from ..ops import softmax
@@ -71,7 +76,9 @@ LANE = 128  # softmax width limit, the JAX package's one-chunk softmax
 MAX_LANES = 65536
 # Dynamic shared memory one block may use on an H100 (227 KB).
 SMEM_BYTES = 232448
-REQUANT_MODES = ("exact2", "exact")
+REQUANT_MODES = ("exact2", "exact", "fixed")
+# F_EXACT of a plan's descriptor: the epilogue of its conv, dw and fc ops
+EPILOGUES = {"exact2": 0, "exact": 1, "fixed": 2}
 
 # Op kinds and descriptor layout; csrc/flatpack.cu and csrc/segment_ops.cuh
 # read the same numbers.  The megakernel's plan (kernels/megakernel.py) writes
@@ -106,6 +113,11 @@ class FlatOp:
     weights: np.ndarray | None = None
     bias0: np.ndarray | None = None  # f32 [C_out] = f32(out_zp) + c0
     c1: np.ndarray | None = None  # f32 [C_out]
+    # requant "fixed": m = M * 2**-S f32 [C_out], bias_q = round(c0 / c1)
+    # int64 [C_out]; bias_q is None where |d + bias_q| reaches 2**31 on some
+    # output lane, and the plan then refuses "fixed", as the JAX package does
+    m: np.ndarray | None = None
+    bias_q: np.ndarray | None = None
     recip: np.ndarray | None = None  # pool: f32 [OH*OW] = 1 / len
     pool_c0: float = 0.0
     pool_c1: float = 0.0
@@ -259,7 +271,7 @@ def plan_flat(graph: Graph, max_layers: int | None = None):
             if np.any(d != d.astype(np.int32)):
                 break
             c_out = out_shape[-1]
-            op = FlatOp("fc", idx, in_shape, out_shape, in_zp=in_zp)
+            op = FlatOp("fc", idx, in_shape, out_shape, in_zp=in_zp, out_zp=layer.out_q.zp0)
             if isinstance(layer, DepthwiseConv2DLayer):
                 op.kind, op.geom, op.weights = "dw", layer.geom, np.array(layer.weights)
             elif isinstance(layer, Conv2DLayer):
@@ -272,6 +284,7 @@ def plan_flat(graph: Graph, max_layers: int | None = None):
             op.bias0 = (np.float32(layer.out_q.zp0)
                         + layer.c0.astype(np.float32)).astype(np.float32)
             op.c1 = broadcast_per_channel(layer.c1, c_out, np.float32)
+            op.m, op.bias_q = multiplier_scale(op.c1), fixed_bias(layer.c0, op.c1, d)
         if kind != "softmax":
             op.clip_lo, op.clip_hi = activation_bounds(layer.activation, layer.out_q.scale0,
                                                        layer.out_q.zp0)
@@ -285,6 +298,17 @@ def plan_flat(graph: Graph, max_layers: int | None = None):
     meta = dict(in_lanes=in_lanes, in_shape=tuple(graph.input_shape),
                 out_shape=ops[-1].out_shape, out_lanes=ops[-1].lanes_out)
     return ops, n, meta
+
+
+def fixed_bias(c0, c1: np.ndarray, d: np.ndarray) -> np.ndarray | None:
+    """``bias_q`` per channel (``derive_bias_q``, as the JAX plan computes
+    it), int64; None when ``d + bias_q`` leaves i32 on some output lane
+    (``d`` per lane, channels last): the JAX plan leaves the fixed planes
+    unset then."""
+    bias_q = derive_bias_q(np.asarray(c0, np.float32), c1).numpy().astype(np.float64)
+    if not np.all(np.abs(d.astype(np.float64) + bias_q) < 2**31):
+        return None
+    return bias_q.astype(np.int64)
 
 
 # --- the plain version --------------------------------------------------------
@@ -301,6 +325,18 @@ def _requant(acc: torch.Tensor, bias0: torch.Tensor, c1: torch.Tensor, lo: int, 
     else:
         t = round_away(y)
     return torch.clamp(t, lo, hi).to(torch.int8)
+
+
+def _requant_fixed(acc: torch.Tensor, bias_q: torch.Tensor, m: torch.Tensor, out_zp: int,
+                   lo: int, hi: int) -> torch.Tensor:
+    """The fixed-point epilogue: ``q = acc + bias_q`` in i32 (wrapping),
+    ``p = f32(q) * m``, ``t = trunc(p + (p >= 0 ? 0.5 : -0.5))``, then
+    ``clip(t + out_zp, lo, hi)``; ``out_zp`` lands after the rounding."""
+    q = torch.remainder(acc.to(torch.int64) + bias_q + 2**31, 2**32) - 2**31
+    p = f32(q) * m
+    t = torch.trunc(p + torch.where(p >= 0, 0.5, -0.5).to(torch.float32))
+    y = t + torch.tensor(float(out_zp), dtype=torch.float32, device=acc.device)
+    return torch.clamp(y, lo, hi).to(torch.int8)
 
 
 def _op_reference(op: FlatOp, x: torch.Tensor, requant: str) -> torch.Tensor:
@@ -334,10 +370,11 @@ def _op_reference(op: FlatOp, x: torch.Tensor, requant: str) -> torch.Tensor:
         else:
             acc = conv_2d_accumulate(x4, w, op.geom, op.in_zp, no_wzp)
         acc = acc.reshape(b, op.lanes_out)
-    c_out = op.out_shape[-1]
-    bias0 = torch.from_numpy(op.bias0).to(dev).repeat(op.lanes_out // c_out)
-    c1 = torch.from_numpy(op.c1).to(dev).repeat(op.lanes_out // c_out)
-    return _requant(acc, bias0, c1, op.clip_lo, op.clip_hi, requant)
+    lanes = lambda v: torch.from_numpy(v).to(dev).repeat(op.lanes_out // op.out_shape[-1])
+    if requant == "fixed":
+        return _requant_fixed(acc, lanes(op.bias_q), lanes(op.m), op.out_zp, op.clip_lo,
+                              op.clip_hi)
+    return _requant(acc, lanes(op.bias0), lanes(op.c1), op.clip_lo, op.clip_hi, requant)
 
 
 def flat_forward_reference(ops: list, x2: torch.Tensor, requant: str = "exact2") -> torch.Tensor:
@@ -381,7 +418,10 @@ class PlanBuffer:
 
 def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
     """The plan as one ``PlanBuffer`` of ``NF``-field descriptors for the
-    kernel.  Returns the buffer and its shared-memory split."""
+    kernel.  Returns the buffer and its shared-memory split.  ``F_EXACT``
+    names the epilogue (``EPILOGUES``); under ``"fixed"`` a conv, dw or fc
+    op's ``F_BIAS`` words hold ``bias_q`` (i32) and its ``F_C1`` words
+    ``m``."""
     plan = PlanBuffer(len(ops), NF)
     put = plan.put
     for f, op in zip(plan.desc, ops):
@@ -398,7 +438,7 @@ def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
                 g.k_rows, g.k_cols, g.stride_rows, g.stride_cols, top, left)
         f[F_ZP] = op.in_zp
         f[F_LO], f[F_HI] = op.clip_lo, op.clip_hi
-        f[F_EXACT] = int(requant == "exact")
+        f[F_EXACT] = EPILOGUES[requant]
         f[F_OUTZP] = op.out_zp
         if op.kind == "softmax":
             f[F_S0], f[F_S1] = _f32_bits(op.sm_in_scale), _f32_bits(op.sm_out_scale)
@@ -430,8 +470,12 @@ def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
             f[F_D] = put(dw_offsets(op.weights, op.in_zp).astype(np.int32))
         else:  # dw [KH,KW,C] and conv [F,KH,KW,C], as the layer holds them
             f[F_W] = put(op.weights.astype(np.int8))
-        f[F_BIAS] = put(op.bias0.astype(np.float32))
-        f[F_C1] = put(op.c1.astype(np.float32))
+        if requant == "fixed":  # bias_q as i32 (mod 2**32: the kernel's sum wraps) and m
+            f[F_BIAS] = put(op.bias_q.astype(np.uint32).view(np.int32))
+            f[F_C1] = put(op.m.astype(np.float32))
+        else:
+            f[F_BIAS] = put(op.bias0.astype(np.float32))
+            f[F_C1] = put(op.c1.astype(np.float32))
     a, b = _smem_split([op.lanes_out for op in ops], ops[0].lanes_in)
     return plan.bytes(), {"smem_a": a, "smem_b": b}
 
@@ -537,11 +581,13 @@ def flat_bound(ops: list, batch: int) -> tuple[int, int]:
 class FlatKernel:
     """``flat_fn``: int8 [B, in_lanes] -> int8 [B, out_lanes].  CUDA tensors
     launch the kernel on the plan's device buffer (built once); CPU
-    tensors run ``flat_forward_reference``."""
+    tensors run ``flat_forward_reference``.  The ``fixed`` epilogue is its
+    own instantiation of the kernel, counted as ``flatpack_fixed``."""
 
     def __init__(self, ops: list, requant: str, device: torch.device):
         self.ops = ops
         self.requant = requant
+        self.launch_key = "flatpack_fixed" if requant == "fixed" else "flatpack"
         self.in_lanes = ops[0].lanes_in
         self.out_lanes = ops[-1].lanes_out
         self.device = device
@@ -570,17 +616,13 @@ class FlatKernel:
         with torch.cuda.device(x2.device):
             rc = fn(x2.data_ptr(), out.data_ptr(), b, self.plan.data_ptr(), len(self.ops),
                     self.in_lanes, self.out_lanes, self.smem_a, self.smem_b,
-                    torch.cuda.current_stream().cuda_stream)
+                    int(self.requant == "fixed"), torch.cuda.current_stream().cuda_stream)
         build.check(rc, "flatpack")
-        LAUNCHES["flatpack"] += 1
+        LAUNCHES[self.launch_key] += 1
         return out
 
 
 def _check_requant(requant: str) -> None:
-    if requant == "fixed":
-        raise NotImplementedError(
-            "requant='fixed' is not ported yet: it needs core/fixedpoint.py "
-            "(ROADMAP.md queue A item 9)")
     if requant in ("raw", "noround"):
         raise NotImplementedError(
             f"requant={requant!r} is a measurement-only epilogue of the JAX package "
@@ -596,6 +638,12 @@ def kernel_from_plan(plan, requant: str = "exact2", device=None):
 
     _check_requant(requant)
     ops, n_layers, meta = plan
+    if requant == "fixed":
+        for op in ops:
+            if op.kind in ("dw", "conv", "pw", "fc") and op.bias_q is None:
+                raise ValueError(
+                    f"requant='fixed': layer {op.layer_idx}'s d + bias_q leaves int32 on some "
+                    "output lane (the JAX package's plan refuses its fixed planes too)")
     return FlatKernel(ops, requant, resolve_device(device)), n_layers, meta
 
 
@@ -609,8 +657,9 @@ def build_flat_kernel(graph: Graph, max_layers: int | None = None, requant: str 
     not pack.  ``flat_fn(x2: int8 [B, in_lanes]) -> int8 [B, out_lanes]``
     takes any ``B >= 0``: no lane padding, no batch tile.  The weights are
     baked into the plan at build.  ``requant`` is ``"exact2"`` (the JAX
-    package's default) or ``"exact"``; ``"fixed"`` waits for the port of
-    ``core/fixedpoint.py`` (ROADMAP queue A item 9) and the
+    package's default), ``"exact"`` or ``"fixed"`` (the integer (M, S)
+    epilogue; a graph whose ``d + bias_q`` leaves int32 raises
+    ``ValueError``, where the JAX package returns None); the
     measurement-only ``"raw"``/``"noround"`` are not ported.
     """
     from ..compiler.builder import resolve_device

@@ -146,11 +146,18 @@ def test_qdwconv_edge_cases_match_plain(cuda, case):
     ("person_detect", None, "exact2"), ("person_detect", 2, "exact2"),
     ("person_detect", 12, "exact"), ("pw_edge_graph", None, "exact2"),
     ("pw_edge_graph", None, "exact"), ("dw_edge_graph", None, "exact2"),
-    ("dw_edge_graph", None, "exact")])
+    ("dw_edge_graph", None, "exact"), ("sine", None, "fixed"), ("speech", None, "fixed"),
+    ("person_detect", None, "fixed"), ("person_detect", 12, "fixed"),
+    ("conv_graph", None, "fixed"), ("pw_edge_graph", None, "fixed"),
+    ("dw_edge_graph", None, "fixed"), ("fixed_edge_none", None, "fixed"),
+    ("fixed_edge_relu", None, "fixed"), ("fixed_edge_relu6", None, "fixed")])
 def test_flat_kernel_matches_plain(cuda, name, max_layers, requant):
     """The pw edge graph's 1x1 convs cover the edges of the tensor-core
     path (``chip_smoke.pw_edge_graph``), the dw edge graph's depthwise
-    convs those of the 3x3 depthwise path (``chip_smoke.dw_edge_graph``)."""
+    convs those of the 3x3 depthwise path (``chip_smoke.dw_edge_graph``),
+    the fixed edge graphs those of the fixed-point epilogue
+    (``chip_smoke.fixed_edge_graph``), which is its own instantiation of
+    the kernel, counted as ``flatpack_fixed``."""
     g = _graph(name)
     flat_fn, n, meta = build_flat_kernel(g, max_layers=max_layers, requant=requant, device=cuda)
     rng = np.random.default_rng(n)
@@ -158,11 +165,29 @@ def test_flat_kernel_matches_plain(cuda, name, max_layers, requant):
         xn = rng.integers(-128, 128, (batch, meta["in_lanes"]), dtype=np.int8)
         xn.flat[:2] = (-128, 127)
         x = torch.from_numpy(xn)
-        before = LAUNCHES["flatpack"]
+        before = LAUNCHES[flat_fn.launch_key]
         got = flat_fn(x.to(cuda))
-        assert LAUNCHES["flatpack"] == before + (batch > 0)
+        assert LAUNCHES[flat_fn.launch_key] == before + (batch > 0)
         assert got.shape == (batch, meta["out_lanes"])
         assert torch.equal(got, flat_forward_reference(flat_fn.ops, x.to(cuda), requant))
+
+
+@pytest.mark.cuda
+def test_fixed_refusal_has_no_fallback(cuda, monkeypatch):
+    """``MFT_FLAT_REQUANT=fixed`` on a graph whose ``d + bias_q`` leaves
+    int32: ``"flat"`` and ``"auto"`` raise; nothing runs in its place."""
+    from microflow_tpu_torch.compiler.builder import CompiledModel
+
+    g = chip_smoke.fixed_edge_graph(TAct.NONE, 0, 0.05)
+    layer = g.layers[1]
+    layer.c0 = layer.c0.copy()
+    layer.c0[0] = np.float32(2.0**31) * layer.c1[0]  # bias_q = 2**31 on lane 0
+    monkeypatch.setenv("MFT_FLAT_REQUANT", "fixed")
+    before = dict(LAUNCHES)
+    for backend in ("flat", "auto"):
+        with pytest.raises(ValueError, match="leaves int32"):
+            CompiledModel(g, backend=backend, device=cuda)
+    assert dict(LAUNCHES) == before
 
 
 @pytest.mark.cuda
@@ -178,6 +203,11 @@ def test_colfc_kernel_matches_plain(cuda, compute):
 
 
 def _graph(name):
+    if name == "conv_graph":
+        return chip_smoke.conv_graph(np.random.default_rng(0))
+    if name.startswith("fixed_edge_"):
+        (spec,) = [s for s in chip_smoke.FIXED_EDGE_ACTS if f"fixed_edge_{s[0].value}" == name]
+        return chip_smoke.fixed_edge_graph(*spec)
     if name == "conv_graph_wzp":
         return chip_smoke.conv_graph(np.random.default_rng(0), wzp=True)
     if name == "packed_graph":

@@ -197,8 +197,10 @@ def test_errors(tmp_path):
     with pytest.raises(ValueError, match="flat-packable"):
         compile_tflite(u8, backend="flat", device="cpu")
     g = tparse(PD)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        build_flat_kernel(g, requant="fixed", device="cpu")
+    # "fixed" is ported: it plans and builds (tests/test_torch_flatpack_fixed.py)
+    flat_fn, n, meta = build_flat_kernel(g, requant="fixed", device="cpu")
+    assert (flat_fn.requant, flat_fn.launch_key, n, meta["out_lanes"]) == (
+        "fixed", "flatpack_fixed", 31, 2)
     for mode in ("raw", "noround"):
         with pytest.raises(NotImplementedError, match="measurement-only"):
             build_flat_kernel(g, requant=mode, device="cpu")

@@ -15,6 +15,7 @@ CHECK = r"""
 import sys
 import microflow_tpu_torch
 import microflow_tpu_torch.compiler.builder, microflow_tpu_torch.kernels.build
+import microflow_tpu_torch.core.fixedpoint, microflow_tpu_torch.compiler.fixed_forward
 import microflow_tpu_torch.kernels.flatpack, microflow_tpu_torch.kernels.colfc
 import microflow_tpu_torch.kernels.megakernel, microflow_tpu_torch.kernels.packed
 import microflow_tpu_torch.models, microflow_tpu_torch.ops, microflow_tpu_torch.frontend

@@ -13,7 +13,9 @@ PTX's fragment tables for ``.s8``.  Each returns the int64 accumulators
 before the epilogue and asserts where the kernel reads (aligned, inside the
 input row) and that every output is written once.  The tests hold them
 exactly against the JAX package's ``conv_2d_accumulate`` and
-``depthwise_conv_2d_accumulate``.
+``depthwise_conv_2d_accumulate``.  ``fixed_epilogue`` replays the
+fixed-point epilogue (``requant="fixed"``) those paths apply to their
+accumulators, from the same plan bytes.
 """
 
 import numpy as np
@@ -294,3 +296,24 @@ def op_dw_vec(row, buf, x: np.ndarray) -> np.ndarray:
     assert (written == 1).all()
     assert (np.abs(out) < 2**31).all()
     return out
+
+
+
+def fixed_epilogue(row, buf, acc: np.ndarray) -> np.ndarray:
+    """The kernels' fixed-point epilogue (``mf_fixed`` in ``csrc/epilogue.cuh``
+    through ``Fixed`` and ``epilogue<R_FIXED>`` in ``segment_ops.cuh``) on
+    the accumulators ``[..., OC]`` an op path returns (``d`` included):
+    ``bias_q`` (i32) and ``m`` (f32) read from the op's ``F_BIAS`` and
+    ``F_C1`` words, ``q = acc + bias_q`` wrapped to i32, ``p = f32(q) * m``,
+    ``t = p + (p >= 0 ? 0.5 : -0.5)`` clamped to the bounds less ``out_zp``,
+    truncated, plus ``out_zp``."""
+    assert int(row[tflat.F_EXACT]) == tflat.EPILOGUES["fixed"]
+    oc = int(row[tflat.F_OC])
+    bias_q = buf[row[tflat.F_BIAS]:row[tflat.F_BIAS] + 4 * oc].view(np.int32).astype(np.int64)
+    m = buf[row[tflat.F_C1]:row[tflat.F_C1] + 4 * oc].view(np.float32)
+    zp = int(row[tflat.F_OUTZP])
+    lo, hi = np.float32(int(row[tflat.F_LO]) - zp), np.float32(int(row[tflat.F_HI]) - zp)
+    q = (acc.astype(np.int64) + bias_q + 2**31) % 2**32 - 2**31
+    p = (q.astype(np.float32) * m).astype(np.float32)
+    t = (p + np.where(p >= 0, np.float32(0.5), np.float32(-0.5))).astype(np.float32)
+    return np.trunc(np.minimum(np.maximum(t, lo), hi)).astype(np.int64) + zp

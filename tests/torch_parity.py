@@ -14,7 +14,9 @@ The whole-network kernels (flat, colfc) round with the TPU kernels'
 ``exact2`` (``trunc(y + (y >= 0 ? 0.5 : -0.5))``) instead of round-half-away;
 ``epilogue_pair(..., rounding="exact2")`` gives their pair, and against the
 XLA oracle the ``exact2`` corner ``exact2_corner`` (y = +-(0.5 - 2**-25))
-is allowed besides the FMA set.
+is allowed besides the FMA set.  The flat kernel's ``fixed`` epilogue
+(``f32(q) * m`` then ``+-0.5``, then a truncation) has an FMA set of its
+own: ``fixed_pair`` and ``fixed_chain_sets``.
 """
 
 from __future__ import annotations
@@ -106,6 +108,33 @@ def _patches(x: np.ndarray, geom, pad_value: int) -> np.ndarray:
     return out
 
 
+def accumulator(layer, params: dict, x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The exact int64 accumulator ``q`` of a FullyConnected, Conv2D or
+    DepthwiseConv2D layer on input ``x`` (channels last) and its per-channel
+    ``c1`` (f32)."""
+    p = {k: np.asarray(v) for k, v in params[f"layer{layer.index}"].items()}
+    in_zp = layer.in_q.zp0
+    if isinstance(layer, FullyConnectedLayer):
+        x2 = x.reshape(x.shape[0], -1).astype(np.int64)
+        w = p["weights"].astype(np.int64)
+        q = (x2 @ w - x2.sum(1, keepdims=True) * layer.w_q.zp0
+             - p["c2"].astype(np.int64)[None, :] + layer.c3)
+        return q, np.full(q.shape[1], layer.c1, F32)
+    if isinstance(layer, Conv2DLayer):
+        nf = layer.filters.shape[0]
+        wzp = _per_channel(layer.w_q.zero_point, nf, np.int64)
+        wc = p["weights"].astype(np.int64) - wzp[:, None, None, None]
+        pt = _patches(x, layer.geom, in_zp) - in_zp
+        return np.einsum("bijmnc,fmnc->bijf", pt, wc), _per_channel(layer.c1, nf, F32)
+    ch = layer.weights.shape[2]
+    in_c = x.shape[-1]
+    xs = x[..., [c if c < in_c else 0 for c in range(ch)]]
+    wzp = _per_channel(layer.w_q.zero_point, ch, np.int64)
+    wc = p["weights"].astype(np.int64) - wzp[None, None, :]
+    pt = _patches(xs, layer.geom, in_zp) - in_zp
+    return np.einsum("bijmnc,mnc->bijc", pt, wc), _per_channel(layer.c1, ch, F32)
+
+
 def epilogue_terms(layer, params: dict, x: np.ndarray):
     """``(c1, f32(q), bias0, lo, hi, conv)`` of a requantizing layer on input
     ``x``, from its exact accumulator; ``conv`` is False for the pool (whose
@@ -113,32 +142,9 @@ def epilogue_terms(layer, params: dict, x: np.ndarray):
     for layers without that epilogue."""
     dtype = np.dtype(x.dtype)
     if isinstance(layer, (FullyConnectedLayer, Conv2DLayer, DepthwiseConv2DLayer)):
-        p = {k: np.asarray(v) for k, v in params[f"layer{layer.index}"].items()}
         lo, hi = bounds(layer.activation, layer.out_q.scale0, layer.out_q.zp0, dtype)
-        bias0 = F32(layer.out_q.zp0) + p["c0"].astype(F32)
-        in_zp = layer.in_q.zp0
-        if isinstance(layer, FullyConnectedLayer):
-            x2 = x.reshape(x.shape[0], -1).astype(np.int64)
-            w = p["weights"].astype(np.int64)
-            q = (x2 @ w - x2.sum(1, keepdims=True) * layer.w_q.zp0
-                 - p["c2"].astype(np.int64)[None, :] + layer.c3)
-            c1 = np.full(q.shape[1], layer.c1, F32)
-        elif isinstance(layer, Conv2DLayer):
-            nf = layer.filters.shape[0]
-            wzp = _per_channel(layer.w_q.zero_point, nf, np.int64)
-            wc = p["weights"].astype(np.int64) - wzp[:, None, None, None]
-            pt = _patches(x, layer.geom, in_zp) - in_zp
-            q = np.einsum("bijmnc,fmnc->bijf", pt, wc)
-            c1 = _per_channel(layer.c1, nf, F32)
-        else:
-            ch = layer.weights.shape[2]
-            in_c = x.shape[-1]
-            xs = x[..., [c if c < in_c else 0 for c in range(ch)]]
-            wzp = _per_channel(layer.w_q.zero_point, ch, np.int64)
-            wc = p["weights"].astype(np.int64) - wzp[None, None, :]
-            pt = _patches(xs, layer.geom, in_zp) - in_zp
-            q = np.einsum("bijmnc,mnc->bijc", pt, wc)
-            c1 = _per_channel(layer.c1, ch, F32)
+        bias0 = F32(layer.out_q.zp0) + np.asarray(params[f"layer{layer.index}"]["c0"]).astype(F32)
+        q, c1 = accumulator(layer, params, x)
         return c1, q.astype(F32), bias0, lo, hi, True
     if isinstance(layer, AveragePool2DLayer):
         lo, hi = bounds(layer.activation, layer.out_q.scale0, layer.out_q.zp0, dtype)
@@ -181,6 +187,49 @@ def chain_sets(jgraph, jparams, x0: np.ndarray, n_layers: int | None = None) -> 
                 counts["exact2_corner"] += int(exact2_corner(*abl).sum())
         run = jax.jit(lambda p, v, layer=lj: jbuilder.apply_layer(layer, p, v, "xla"))
         x = np.asarray(run(jparams, jnp.asarray(x)))
+        outs.append(x)
+    counts["outputs"] = outs
+    return counts
+
+
+def fixed_pair(q, bias_q, m, out_zp: int, lo: int, hi: int):
+    """Integer outputs of the flat kernel's fixed-point epilogue on exact
+    accumulators ``q`` (channels last) with per-channel ``bias_q`` and ``m``:
+    ``q + bias_q`` wrapped to i32, ``p = f32(q) * m``, ``trunc(p + (p >= 0 ?
+    0.5 : -0.5))``, then ``clip(t + out_zp, lo, hi)``; computed with the
+    multiply and the add rounded apart (the kernels) and as one fused
+    multiply-add (emulated in float64, where the product is exact)."""
+    q32 = (np.asarray(q, np.int64) + np.asarray(bias_q, np.int64) + 2**31) % 2**32 - 2**31
+    qf, m = q32.astype(F32), np.asarray(m, F32)
+    p = (qf * m).astype(F32)
+    h = np.where(p >= 0, F32(0.5), F32(-0.5))
+    sep = np.trunc((p + h).astype(F32))
+    fma = np.trunc((qf.astype(np.float64) * m.astype(np.float64) + h).astype(F32))
+    return tuple(np.clip(t + F32(out_zp), lo, hi).astype(np.int64) for t in (sep, fma))
+
+
+def fixed_chain_sets(jgraph, jparams, ops, x0: np.ndarray) -> dict:
+    """Run the port's flat plan ``ops`` with ``requant="fixed"`` op by op
+    (the plain version) on ``x0`` and count, along the chain, the elements
+    where an FMA would round otherwise than a multiply then an add: in the
+    fixed epilogue of the conv, dw and fc ops (from the JAX layer's exact
+    accumulator and the plan's ``bias_q`` and ``m``) and in the pool's.
+    Returns the counts and the chain's outputs (``"outputs"``)."""
+    from microflow_tpu_torch.kernels.flatpack import flat_forward_reference
+
+    x = x0.reshape(x0.shape[0], -1)
+    counts, outs = {"fma_fixed": 0, "fma_pool": 0}, []
+    for op in ops:
+        layer = jgraph.layers[op.layer_idx]
+        xs = x.reshape(x.shape[0], *op.in_shape)
+        if op.kind in ("dw", "conv", "pw", "fc"):
+            q, _ = accumulator(layer, jparams, xs)
+            sep, fma = fixed_pair(q, op.bias_q, op.m, op.out_zp, op.clip_lo, op.clip_hi)
+            counts["fma_fixed"] += int((sep != fma).sum())
+        elif op.kind == "pool":
+            sep, fma = expected_pair(layer, jparams, xs)
+            counts["fma_pool"] += int((sep != fma).sum())
+        x = flat_forward_reference([op], torch.from_numpy(x), "fixed").numpy()
         outs.append(x)
     counts["outputs"] = outs
     return counts
