@@ -10,8 +10,8 @@ line; any failure raises and the script exits non-zero:
 1. device: CUDA must be present; the card's name and power limit.
 2. build: the six kernels of ``microflow_tpu_torch/csrc/`` with ``nvcc``,
    in parallel; ``ptxas`` registers, stack and spills of every entry
-   function, and a check that the exact2 flat kernel and the megakernel
-   keep 64 registers, no stack and no spills.
+   function, and a check that the exact2 flat kernel, the megakernel and
+   the packed kernel keep 64 registers, no stack and no spills.
 3. kernels: each kernel held bit-equal against its plain torch version:
    ``qgemm``/``qdwconv`` at every layer shape of sine, speech and
    person_detect (batch 64) and on edge cases (``qdwconv``'s, on its
@@ -34,8 +34,13 @@ line; any failure raises and the script exits non-zero:
    at batches 64, 3 and 0 (the phase prints how many ops of each take each
    of the kernel's paths: person_detect's 14 depthwise ops on the 3x3
    strips and 13 1x1 convs on ``mma.sync``);
-   ``packed`` on person_detect's prefixes (whole, 5, 9 and 15 layers) and
-   a small packable graph at batches 64, 3 and 0; ``flatpack_fixed`` (the
+   ``packed`` on person_detect's prefixes (whole, 5, 9 and 15 layers), a
+   small packable graph and ``packed_edge_graph`` (every general path of
+   the kernel and ``op_dw_vec``, and a tensor-core 1x1 conv whose
+   epilogue sits on the exact2 corners, on +-k.5 and past both rails) at
+   batches 64, 3 and 0 (the phase prints each plan's paths, person_detect's
+   12 depthwise ops on the strips and 11 1x1 convs on ``mma.sync``, and
+   how many outputs the plan's exact2 mutant would change); ``flatpack_fixed`` (the
    flat kernel with ``requant="fixed"``, the integer (M, S) epilogue, its
    own instantiation ``flat_kernel<true>``) on person_detect (whole, 2 and
    12 layers), speech and sine at batches 64, 3 and 0, on the conv graph,
@@ -56,7 +61,9 @@ line; any failure raises and the script exits non-zero:
    ``flatpack`` on person_detect and speech at batch
    8192 (person_detect: exact2, then ``flatpack_fixed`` on the same input,
    then exact2 again), ``colfc`` on sine at batch 1,048,576, ``megakernel`` (person_detect's
-   fused segment) and ``packed`` (its prefix) at batch 8192.
+   fused segment) and ``packed`` (its prefix) at batch 8192, ``packed``
+   beside the flat kernel in ``exact`` mode on the same 23 layers (the
+   same plan; the two outputs checked equal), then again.
 4. main paths, each driven with the launch counts set to 0 just before it
    and read just after: the three Rust goldens through ``compile_tflite``
    with the default backend (``"flat"`` for person_detect and speech,
@@ -827,12 +834,85 @@ def packed_graph(rng) -> Graph:
                  output_dtype=np.dtype(np.int8))
 
 
+# packed_edge_graph's layers: (kind, row and column stride, output channels)
+PACKED_EDGE = (("dw", (2, 2), 2), ("dw", (1, 1), 2), ("pw", (1, 1), 8), ("pw", (1, 1), 4),
+               ("dw", (1, 2), 4), ("pw", (1, 1), 32), ("pw", (1, 1), 2), ("pw", (1, 1), 16),
+               ("dw", (1, 1), 16), ("dw", (2, 2), 16), ("pw", (1, 1), 32))
+# the packed kernel's path of each of its ops: every general path (op_dw
+# from one input channel and from as many as it has, op_conv, op_pw to 4
+# and to 2 channels) and op_dw_vec, between strips and tensor-core convs
+PACKED_EDGE_PATHS = ["dw", "dw", "conv", "pw", "dw_vec", "pw_mma", "pw", "conv", "dw3_s1",
+                     "dw3_s2", "pw_mma"]
+PACKED_EDGE_CORNERS = 10  # the 1x1 conv whose epilogue constants sit on the corners
+
+
+def packed_edge_graph(rng) -> Graph:
+    """A graph of the port's IR that ``plan_packed`` takes whole and whose
+    ops reach each path of the packed kernel (``PACKED_EDGE_PATHS``), int8
+    [13, 256, 1] in: a 3x3/s2 stem to 2 channels and a 3x3 depthwise conv
+    over them at 128 columns (256 lanes), 1x1 convs from 2 channels and to
+    4 and 2, a 3x3 depthwise conv at row stride 1 and column stride 2, and
+    strips and tensor-core convs between them: [4, 32, 32] out.  Random
+    weights and zero points (-128 at the input), every activation; each
+    layer's c0 and c1 are set from its accumulators on 4 random samples so
+    that its outputs spread over the int8 range.  The last layer
+    (``PACKED_EDGE_CORNERS``, 16 -> 32 on the tensor cores, no activation,
+    output zero point 0, so bias0 = c0) has c1 = 1 on 16 lanes: lanes of
+    weights 1 put y = c0 + the sum of (x - in_zp) over its input channels
+    on every +-k.5 and the ulps around it as the input varies; lanes of
+    weights 0 put y on c0 itself, +-0.5 and the ulps around it,
+    +-(0.5 - 2**-25) among them; lanes of weights 127 and -128 and c0 =
+    +-1e9 go past both rails."""
+    q = lambda zp: QuantInfo(np.array([rng.uniform(0.02, 0.1)], np.float32),
+                             np.array([zp], np.int64))
+    w_q = QuantInfo(np.ones(1, np.float32), np.zeros(1, np.int64))
+    layers, shape, in_q = [], (13, 256, 1), q(-128)
+    input_q = in_q
+    x = rng.integers(-128, 128, (4, *shape)).astype(np.int64)  # the calibration samples
+    for i, (kind, (sr, sc), c_out) in enumerate(PACKED_EDGE):
+        h, w, c_in = shape
+        corners = i == PACKED_EDGE_CORNERS
+        out_q = q(0 if corners else int(rng.integers(-128, 100)))
+        act = FusedActivation.NONE if corners else ACTS[i % 3]
+        xc = x - in_q.zp0
+        if kind == "dw":
+            g = ViewGeometry(h, w, 3, 3, -(-h // sr), -(-w // sc), sr, sc, ViewPadding.SAME)
+            wt = rng.integers(-128, 128, (3, 3, c_out)).astype(np.int8)
+            xp = np.pad(xc, ((0, 0), (1, 1), (1, 1), (0, 0)))  # x - in_zp is 0 outside
+            acc = sum(xp[:, dh:dh + sr * (g.out_rows - 1) + 1:sr, dw:dw + sc * (g.out_cols - 1)
+                         + 1:sc] * wt[dh, dw].astype(np.int64)
+                      for dh in range(3) for dw in range(3))
+        else:
+            g = ViewGeometry(h, w, 1, 1, h, w, 1, 1, ViewPadding.VALID)
+            wt = rng.integers(-128, 128, (c_out, 1, 1, c_in)).astype(np.int8)
+            if corners:
+                halves = [float(v) for v0 in (np.float32(0.5), np.float32(-0.5))
+                          for v in (v0, np.nextafter(v0, np.float32(0)),
+                                    np.nextafter(v0, 2 * v0))]
+                lanes = ([(1, b) for b in halves] + [(0, b) for b in halves]
+                         + [(127, 0.0), (-128, 0.0), (0, 1e9), (0, -1e9)])
+                wt[:len(lanes)] = np.array([v for v, _ in lanes], np.int8)[:, None, None, None]
+            acc = xc @ wt.reshape(c_out, c_in).T.astype(np.int64)
+        c1 = (40 / np.maximum(acc.reshape(-1, c_out).std(0), 1)).astype(np.float32)
+        c0 = (-acc.reshape(-1, c_out).mean(0) * c1 + rng.normal(0, 5, c_out)).astype(np.float32)
+        if corners:
+            c0[:len(lanes)], c1[:len(lanes)] = [b for _, b in lanes], 1.0
+        lo, hi = activation_bounds(act, out_q.scale0, out_q.zp0)
+        x = np.clip(np.round(out_q.zp0 + c0 + c1 * acc), lo, hi).astype(np.int64)
+        cls = DepthwiseConv2DLayer if kind == "dw" else Conv2DLayer
+        layers.append(cls(i, wt, in_q, w_q, w_q, out_q, c0, c1, g, act, x.shape[1:]))
+        shape, in_q = x.shape[1:], out_q
+    return Graph(name="packed_edge_graph", layers=layers, input_shape=(13, 256, 1),
+                 input_q=input_q, input_dtype=np.dtype(np.int8), output_shape=shape,
+                 output_q=in_q, output_dtype=np.dtype(np.int8))
+
+
 def whole_network_checks(dev, rng) -> dict:
     """``flatpack``, ``colfc``, ``megakernel`` and ``packed`` against their
     plain versions on the card: max |kernel - plain| per kernel and the
     number of checks."""
     errs = {"flatpack": [], "flatpack_fixed": [], "colfc": [], "megakernel": [], "packed": []}
-    mma_ops, dw3_ops, mega_paths = {}, {}, {}
+    mma_ops, dw3_ops, mega_paths, packed_paths, packed_corners = {}, {}, {}, {}, {}
 
     def flat_check(g, label, batches, max_layers=None, requant="exact2"):
         flat_fn, _, meta = build_flat_kernel(g, max_layers=max_layers, requant=requant,
@@ -864,12 +944,22 @@ def whole_network_checks(dev, rng) -> dict:
                     "max_abs_err": max_abs_err(seg(xs), seg.reference(xs))})
 
     def packed_check(g, label, batches, max_layers=None):
+        """The kernel's path of each op is kept in ``packed_paths``; the
+        count of outputs that the plan's ``exact2`` form (the mutant of its
+        epilogue) would round otherwise, on the largest batch, in
+        ``packed_corners``."""
         packed_fn, _, meta = build_packed_kernel(g, max_layers=max_layers, device=dev)
+        packed_paths[label] = packed_fn.paths
         for b in batches:
-            x = torch.from_numpy(rng.integers(-128, 128, (b, meta["in_rows"], meta["in_cols"], 1),
-                                              dtype=np.int8)).to(dev)
+            xn = rng.integers(-128, 128, (b, meta["in_rows"], meta["in_cols"], 1), dtype=np.int8)
+            xn.flat[:2] = (-128, 127)[:xn.size]  # both int8 rails in every case
+            x = torch.from_numpy(xn).to(dev)
+            want = packed_reference(packed_fn.ops, x)
             errs["packed"].append({"case": f"{label} B{b}", "max_abs_err": max_abs_err(
-                packed_fn(x), packed_reference(packed_fn.ops, x))})
+                packed_fn(x), want)})
+            if b == max(batches):
+                mutant = flat_forward_reference(packed_fn.flat_ops, x.reshape(b, -1), "exact2")
+                packed_corners[label] = int((mutant != want.reshape(b, -1)).sum().item())
 
     def col_check(g, label, x, compute):
         col_fn, meta = build_col_kernel(g, compute=compute, device=dev)
@@ -950,6 +1040,14 @@ def whole_network_checks(dev, rng) -> dict:
     for max_layers in (None, 5, 9, 15):
         packed_check(pd, f"person_detect[:{max_layers}]", batches, max_layers)
     packed_check(packed_graph(rng), "packed_graph", batches)
+    packed_check(packed_edge_graph(np.random.default_rng(0)), "packed_edge_graph", batches)
+    if count_paths(packed_paths["person_detect[:None]"]) != {"dw3_s1": 8, "dw3_s2": 3,
+                                                            "dw3_stem": 1, "pw_mma": 11}:
+        raise AssertionError(f"person_detect's packed paths: {packed_paths['person_detect[:None]']}")
+    if packed_paths["packed_edge_graph"] != PACKED_EDGE_PATHS:
+        raise AssertionError(f"packed_edge_graph's paths: {packed_paths['packed_edge_graph']}")
+    if not packed_corners["packed_edge_graph"]:
+        raise AssertionError("no output of packed_edge_graph on the exact2 corner")
     graphs, n_fma = edge_graphs(rng)
     sweep = np.concatenate([np.arange(-128, 128), rng.integers(-128, 128, 768)]).astype(np.int8)
     x = torch.from_numpy(sweep.reshape(-1, 1)).to(dev)
@@ -968,7 +1066,10 @@ def whole_network_checks(dev, rng) -> dict:
             "fixed_edge_counts": fixed_edges,
             "mma_ops": {k: len(v) for k, v in mma_ops.items()},
             "dw3_ops": {k: len(v) for k, v in dw3_ops.items()},
-            "mega_paths": {k: count_paths(v) for k, v in mega_paths.items()}}
+            "mega_paths": {k: count_paths(v) for k, v in mega_paths.items()},
+            "packed_paths": {k: count_paths(v) for k, v in packed_paths.items()},
+            "packed_edge_paths": packed_paths["packed_edge_graph"],
+            "packed_exact2_corner_outputs": packed_corners}
 
 
 def count_paths(paths: list) -> dict:
@@ -1134,7 +1235,16 @@ def time_whole_network(dev, rng) -> dict:
     nbytes, ops = packed_bound(packed_fn.ops, 8192)
     res["packed_person_detect"] = timed(
         packed_fn, lambda v: packed_reference(packed_fn.ops, v), x, nbytes, ops,
-        layers=f"0-{n_layers - 1}")
+        layers=f"0-{n_layers - 1}", paths=count_paths(packed_fn.paths))
+    # the yardstick: the flat kernel in exact mode on the same layers, whose
+    # plan is the packed kernel's, on the same input; then packed again
+    flat_fn, _, _ = build_flat_kernel(pd, max_layers=n_layers, requant="exact", device=dev)
+    x2 = x.reshape(8192, -1)
+    res["flatpack_exact_packed_layers"] = timed(
+        flat_fn, lambda v: flat_forward_reference(flat_fn.ops, v, "exact"), x2, nbytes, ops,
+        layers=f"0-{n_layers - 1}",
+        equal_to_packed=bool(torch.equal(flat_fn(x2), packed_fn(x).reshape(8192, -1))))
+    res["packed_person_detect"]["ms_after_flat"] = time_ms(lambda: packed_fn(x), 20)
     return res
 
 
@@ -1178,9 +1288,10 @@ def main() -> int:
         usage.update(ptxas_usage(log))
     emit({"phase": "build", "seconds": round(time.time() - t, 3), "ptxas": ptxas,
           "ptxas_by_function": usage})
-    # the exact2 flat kernel and the megakernel keep their budget: no stack,
-    # no spills within __launch_bounds__(256, 4)'s 64 registers
-    for key in ("flat_kernelILb0E", "segment_kernel"):
+    # the exact2 flat kernel, the megakernel and the packed kernel keep their
+    # budget: no stack, no spills within __launch_bounds__(256, 4)'s 64
+    # registers
+    for key in ("flat_kernelILb0E", "segment_kernel", "packed_kernel"):
         (fn,) = [u for f, u in usage.items() if key in f]
         if fn["registers"] > 64 or fn["stack"] or fn["spill_stores"] or fn["spill_loads"]:
             raise AssertionError(f"{key}: {fn}")
@@ -1208,7 +1319,10 @@ def main() -> int:
           "fixed_edge_counts": whole_net["fixed_edge_counts"],
           "flatpack_mma_sync_ops": whole_net["mma_ops"],
           "flatpack_3x3_depthwise_ops": whole_net["dw3_ops"],
-          "megakernel_paths": whole_net["mega_paths"]})
+          "megakernel_paths": whole_net["mega_paths"],
+          "packed_paths": whole_net["packed_paths"],
+          "packed_edge_paths": whole_net["packed_edge_paths"],
+          "packed_exact2_corner_outputs": whole_net["packed_exact2_corner_outputs"]})
     if any(errs.values()):
         raise AssertionError(f"kernel differs from its plain version: {errs}")
 
@@ -1223,6 +1337,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     if any(v["max_abs_err"] for v in list(timing.values()) + list(timing_whole.values())):
         raise AssertionError("kernel differs from its plain version at the timed batch")
+    if not timing_whole["flatpack_exact_packed_layers"]["equal_to_packed"]:
+        raise AssertionError("the flat kernel in exact mode differs from packed on its layers")
     emit({"phase": "kernel_times", "batch": 8192, "device": smi, **timing, **timing_whole})
 
     # 4. main paths, each with the launch counts set to 0 just before it

@@ -410,7 +410,7 @@ class CompiledModel:
             from ..kernels.packed import PackedKernel
 
             ops, n_layers, meta = plan
-            self._packed = PackedKernel(ops, self.device), n_layers, meta
+            self._packed = PackedKernel(graph, ops, self.device), n_layers, meta
             per_op_layers = graph.layers[n_layers:]
         elif self.backend in ("fused", "hybrid"):
             from ..kernels.megakernel import FusedForward

@@ -23,9 +23,11 @@
 // convs (all 14 of person_detect's) do 13.5% of the multiply-adds but make
 // 107,136 outputs a sample; they take the strips of op_dw3 and op_dw3_stem.
 // Both paths, op_dw_vec and the pool are in segment_ops.cuh, shared with
-// csrc/megakernel.cu.  The other 1x1 convs over a multiple of 4 channels
-// use __dp4a, four output channels a thread, one pixel at a time; the rest
-// is scalar integer work on the CUDA cores (this file).
+// csrc/megakernel.cu and csrc/packed.cu.  The other 1x1 convs over a
+// multiple of 4 channels use __dp4a, four output channels a thread, one
+// pixel at a time; the other depthwise convs and any Conv2D are scalar
+// integer work on the CUDA cores (general_ops.cuh, shared with
+// csrc/packed.cu); FullyConnected and the softmax are this file's.
 //
 // Every read stays in bounds: a tap outside the input is skipped, or reads
 // in_zp in place of the input (either way it adds (in_zp - in_zp) * w = 0,
@@ -35,136 +37,11 @@
 // (its plan: F_EXACT = R_FIXED, bias_q and m in the F_BIAS and F_C1 words).
 
 #include "segment_ops.cuh"
+#include "general_ops.cuh"
 
 namespace {
 
 enum { K_DW, K_CONV, K_PW, K_FC, K_POOL, K_SOFTMAX };
-
-// Depthwise conv, one output a thread (the general case); output channel c
-// reads input channel c, or channel 0 when the input has fewer channels
-// (the depth-multiplier fallback).
-template <bool kFixed>
-__device__ void op_dw(const Op& op, const int8_t* src, int8_t* dst) {
-  const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
-  const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
-  const int kh = op[F_KH], kw = op[F_KW], sr = op[F_SR], sc = op[F_SC];
-  const int pt = op[F_PT], pl = op[F_PL], zp = op[F_ZP], exact = op[F_EXACT];
-  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
-  const int8_t* w = op.at<int8_t>(F_W);  // [KH][KW][OC]
-  const float* b0 = op.at<float>(F_BIAS);
-  const float* c1 = op.at<float>(F_C1);
-  const Fixed fx = kFixed ? Fixed(op) : Fixed();
-  const int total = oh * ow * oc;
-  for (int e = threadIdx.x; e < total; e += kThreads) {
-    const int c = e % oc, p = e / oc;
-    const int r0 = (p / ow) * sr - pt, q0 = (p % ow) * sc - pl;
-    const int ci = c < ic ? c : 0;
-    int acc = 0;
-    for (int dh = 0; dh < kh; ++dh) {
-      const int r = r0 + dh;
-      if (r < 0 || r >= ih) continue;
-      for (int dw = 0; dw < kw; ++dw) {
-        const int q = q0 + dw;
-        if (q < 0 || q >= iw) continue;
-        acc += ((int)src[(r * iw + q) * ic + ci] - zp) * (int)__ldg(w + (dh * kw + dw) * oc + c);
-      }
-    }
-    dst[e] = kFixed ? fx(acc, __ldg(b0 + c), __ldg(c1 + c))
-                    : requant(acc, __ldg(b0 + c), __ldg(c1 + c), lo, hi, exact);
-  }
-}
-
-// Any Conv2D: filters [OC][KH][KW][IC].
-template <bool kFixed>
-__device__ void op_conv(const Op& op, const int8_t* src, int8_t* dst) {
-  const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
-  const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
-  const int kh = op[F_KH], kw = op[F_KW], sr = op[F_SR], sc = op[F_SC];
-  const int pt = op[F_PT], pl = op[F_PL], zp = op[F_ZP], exact = op[F_EXACT];
-  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
-  const int8_t* w = op.at<int8_t>(F_W);
-  const float* b0 = op.at<float>(F_BIAS);
-  const float* c1 = op.at<float>(F_C1);
-  const Fixed fx = kFixed ? Fixed(op) : Fixed();
-  const int total = oh * ow * oc;
-  for (int e = threadIdx.x; e < total; e += kThreads) {
-    const int f = e % oc, p = e / oc;
-    const int r0 = (p / ow) * sr - pt, q0 = (p % ow) * sc - pl;
-    int acc = 0;
-    for (int dh = 0; dh < kh; ++dh) {
-      const int r = r0 + dh;
-      if (r < 0 || r >= ih) continue;
-      for (int dw = 0; dw < kw; ++dw) {
-        const int q = q0 + dw;
-        if (q < 0 || q >= iw) continue;
-        const int8_t* xs = src + (r * iw + q) * ic;
-        const int8_t* ws = w + ((f * kh + dh) * kw + dw) * ic;
-        for (int ci = 0; ci < ic; ++ci) acc += ((int)xs[ci] - zp) * (int)__ldg(ws + ci);
-      }
-    }
-    dst[e] = kFixed ? fx(acc, __ldg(b0 + f), __ldg(c1 + f))
-                    : requant(acc, __ldg(b0 + f), __ldg(c1 + f), lo, hi, exact);
-  }
-}
-
-// 1x1 conv (any stride) over IC % 4 == 0 channels: raw int8 dot by __dp4a
-// plus d[f] = -in_zp * colsum.  Weights are [IC/4][OC] words.
-template <bool kFixed>
-__device__ void op_pw(const Op& op, const int8_t* src, int8_t* dst) {
-  const int iw = op[F_IW], ic = op[F_IC];
-  const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
-  const int sr = op[F_SR], sc = op[F_SC], exact = op[F_EXACT];
-  const float lo = (float)op[F_LO], hi = (float)op[F_HI];
-  const int* w4 = op.at<int>(F_W);
-  const int* d = op.at<int>(F_D);
-  const float* b0 = op.at<float>(F_BIAS);
-  const float* c1 = op.at<float>(F_C1);
-  const Fixed fx = kFixed ? Fixed(op) : Fixed();
-  const int k4 = ic >> 2;
-  if ((oc & 3) == 0) {
-    // four output channels a thread: one x word feeds four __dp4a, and the
-    // four weight words arrive in one 16-byte load
-    const int groups = oc >> 2;
-    const int total = oh * ow * groups;
-    const int4* wv4 = reinterpret_cast<const int4*>(w4);
-    for (int e = threadIdx.x; e < total; e += kThreads) {
-      const int g = e % groups, p = e / groups;
-      const int ip = (p / ow) * sr * iw + (p % ow) * sc;
-      const int* xw = reinterpret_cast<const int*>(src + ip * ic);
-      int acc[4] = {0, 0, 0, 0};
-      for (int k = 0; k < k4; ++k) {
-        const int xv = xw[k];
-        const int4 wv = __ldg(wv4 + k * groups + g);
-        acc[0] = __dp4a(xv, wv.x, acc[0]);
-        acc[1] = __dp4a(xv, wv.y, acc[1]);
-        acc[2] = __dp4a(xv, wv.z, acc[2]);
-        acc[3] = __dp4a(xv, wv.w, acc[3]);
-      }
-      const int c = 4 * g;
-      uint32_t packed = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        packed |= (uint32_t)(uint8_t)(kFixed ? fx(acc[j] + __ldg(d + c + j), __ldg(b0 + c + j),
-                                                  __ldg(c1 + c + j))
-                                               : requant(acc[j] + __ldg(d + c + j),
-                                                         __ldg(b0 + c + j), __ldg(c1 + c + j),
-                                                         lo, hi, exact))
-                  << (8 * j);
-      *reinterpret_cast<uint32_t*>(dst + p * oc + c) = packed;
-    }
-  } else {
-    const int total = oh * ow * oc;
-    for (int e = threadIdx.x; e < total; e += kThreads) {
-      const int c = e % oc, p = e / oc;
-      const int ip = (p / ow) * sr * iw + (p % ow) * sc;
-      const int* xw = reinterpret_cast<const int*>(src + ip * ic);
-      int acc = 0;
-      for (int k = 0; k < k4; ++k) acc = __dp4a(xw[k], __ldg(w4 + k * oc + c), acc);
-      dst[e] = kFixed ? fx(acc + __ldg(d + c), __ldg(b0 + c), __ldg(c1 + c))
-                      : requant(acc + __ldg(d + c), __ldg(b0 + c), __ldg(c1 + c), lo, hi, exact);
-    }
-  }
-}
 
 // FullyConnected: one warp an output, lanes over K, then a shuffle sum
 // (integer, so the order does not matter).  Weights are [N][K].

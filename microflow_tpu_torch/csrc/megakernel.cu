@@ -210,9 +210,7 @@ __global__ void __launch_bounds__(kThreads, 4)
 // its descriptors: every op reads and writes inside its shared-memory
 // buffer (16-byte multiples) and takes the tensor the op before it wrote;
 // a 1x1 conv reads whole words of pixels inside its input; the shared
-// paths have the kinds, windows and channel multiples they were planned
-// for, tensors of at most MAX_LANES elements (F_MMA, F_DW3), and 16-byte
-// aligned constants for their vector loads.
+// paths' own assumptions hold (segment_ops.cuh: shared_path_ok).
 bool plan_ok(const int* desc, const void* plan, int n_ops, int in_elems, int out_elems,
              int smem_a, int smem_b) {
   if (smem_a % 16 || smem_b % 16 || reinterpret_cast<uintptr_t>(plan) % 16 || in_elems > smem_b)
@@ -237,24 +235,7 @@ bool plan_ok(const int* desc, const void* plan, int n_ops, int in_elems, int out
     if (kind == K_PW && (ic % 4 || (f[F_OH] - 1) * f[F_SR] >= f[F_IH] ||
                          (f[F_OW] - 1) * f[F_SC] >= f[F_IW]))
       return false;
-    const int path = f[F_DW3], vec = f[F_VEC], mma = f[F_MMA];
-    if (!path && !vec && !mma) continue;
-    if (f[F_W] % 16 || f[F_D] % 16 || f[F_BIAS] % 16 || f[F_C1] % 16) return false;
-    if (mma) {
-      if (kind != K_PW || c % 16 || n_out > MAX_LANES || path || vec) return false;
-      continue;
-    }
-    const bool groups = c > 0 && c % 4 == 0 && kThreads % (c / 4) == 0;
-    if (kind != K_DW || !groups || (path && vec)) return false;
-    if (vec && ic != 1 && ic != c) return false;
-    if (!path) continue;
-    const int s = f[F_SR];
-    if (n_out > MAX_LANES || f[F_KH] != 3 || f[F_KW] != 3 || f[F_SC] != s) return false;
-    if (path == DW3_S1 || path == DW3_S2) {
-      if (ic != c || s != (path == DW3_S1 ? 1 : 2)) return false;
-    } else if (path != DW3_STEM || ic != 1 || s != 2 || f[F_PL] != 1 || f[F_IW] % 4) {
-      return false;
-    }
+    if (!shared_path_ok(f, K_DW, K_PW)) return false;
   }
   return cur == out_elems;
 }

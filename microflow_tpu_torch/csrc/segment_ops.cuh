@@ -1,11 +1,12 @@
-// Device code shared by the whole-network kernels flatpack.cu and
-// megakernel.cu: the op descriptor both plans write, the persistent block
-// loop over samples, its launch, and the op paths that do the bulk of the
-// work.  The plans (kernels/flatpack.py::pack_plan,
-// kernels/megakernel.py::pack_segment) mark the ops that take these paths
-// by rules on shape fixed at plan time (kernels/flatpack.py::pw_mma,
-// dw3_path, dw_vec), so a kernel dispatches on descriptor fields, never on
-// data.
+// Device code shared by the whole-network kernels flatpack.cu,
+// megakernel.cu and packed.cu: the op descriptor their plans write, the
+// persistent block loop over samples, its launch, the op paths that do the
+// bulk of the work, and the host check of what those paths assume.  The
+// plans (kernels/flatpack.py::pack_plan, which kernels/packed.py also
+// uses, and kernels/megakernel.py::pack_segment) mark the ops that take
+// these paths by rules on shape fixed at plan time
+// (kernels/flatpack.py::pw_mma, dw3_path, dw_vec), so a kernel dispatches
+// on descriptor fields, never on data.
 //
 // The loop: a persistent block takes one sample at a time (b = blockIdx.x;
 // b < B; b += gridDim.x), stages its input row in shared memory, and runs
@@ -593,6 +594,27 @@ __device__ __forceinline__ void run_plan(const int8_t* __restrict__ x, int8_t* _
     }
     __syncthreads();  // the next sample's input overwrites buffer B
   }
+}
+
+// What the shared paths' reads assume of an op, checked by an entry point
+// on the host copy f of its descriptor before the launch (k_dw, k_pw: the
+// caller's kinds of a depthwise and a 1x1 conv): the kind, window, stride
+// and channel multiples the plan marked it for, a tensor of at most
+// MAX_LANES elements (F_MMA, F_DW3), and 16-byte aligned constants for the
+// vector loads.  True for an op on none of the shared paths.
+inline bool shared_path_ok(const int* f, int k_dw, int k_pw) {
+  const int kind = f[F_KIND], c = f[F_OC], ic = f[F_IC], n_out = f[F_OUT];
+  const int path = f[F_DW3], vec = f[F_VEC], mma = f[F_MMA];
+  if (!path && !vec && !mma) return true;
+  if (f[F_W] % 16 || f[F_D] % 16 || f[F_BIAS] % 16 || f[F_C1] % 16) return false;
+  if (mma) return kind == k_pw && c % 16 == 0 && n_out <= MAX_LANES && !path && !vec;
+  const bool groups = c > 0 && c % 4 == 0 && kThreads % (c / 4) == 0;
+  if (kind != k_dw || !groups || (path && vec)) return false;
+  if (vec) return ic == 1 || ic == c;
+  const int s = f[F_SR];
+  if (n_out > MAX_LANES || f[F_KH] != 3 || f[F_KW] != 3 || f[F_SC] != s) return false;
+  if (path == DW3_S1 || path == DW3_S2) return ic == c && s == (path == DW3_S1 ? 1 : 2);
+  return path == DW3_STEM && ic == 1 && s == 2 && f[F_PL] == 1 && f[F_IW] % 4 == 0;
 }
 
 // Launch a kernel built on run_plan: as many persistent blocks as fit the

@@ -43,7 +43,7 @@ SIGNATURES = {
     "flatpack": ("mf_flatpack", [_P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P]),
     "colfc": ("mf_colfc", [_P, _P, _L, _P, _I, _I, _I, _I, _I, _P]),
     "megakernel": ("mf_megakernel", [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "packed": ("mf_packed", [_P, _P, _L, _P, _I, _I, _I, _I, _P]),
+    "packed": ("mf_packed", [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -265,29 +265,12 @@ def plan_flat(graph: Graph, max_layers: int | None = None):
             op = FlatOp("pool", idx, in_shape, out_shape, geom=layer.geom,
                         pool_c0=float(np.float32(layer.c0)), pool_c1=float(np.float32(layer.c1)))
             op.recip = (np.float32(1.0) / layer.geom.len_plane().astype(np.float32)).reshape(-1)
-        else:
-            in_zp = layer.in_q.zp0
-            d = -np.int64(in_zp) * _colsum(layer, in_shape)
-            if np.any(d != d.astype(np.int32)):
-                break
-            c_out = out_shape[-1]
-            op = FlatOp("fc", idx, in_shape, out_shape, in_zp=in_zp, out_zp=layer.out_q.zp0)
-            if isinstance(layer, DepthwiseConv2DLayer):
-                op.kind, op.geom, op.weights = "dw", layer.geom, np.array(layer.weights)
-            elif isinstance(layer, Conv2DLayer):
-                op.geom = layer.geom
-                one = (layer.geom.k_rows, layer.geom.k_cols) == (1, 1)
-                op.kind = "pw" if one and in_shape[2] % 4 == 0 else "conv"
-                op.weights = np.array(layer.filters)
-            else:
-                op.weights = np.array(layer.weights)
-            op.bias0 = (np.float32(layer.out_q.zp0)
-                        + layer.c0.astype(np.float32)).astype(np.float32)
-            op.c1 = broadcast_per_channel(layer.c1, c_out, np.float32)
-            op.m, op.bias_q = multiplier_scale(op.c1), fixed_bias(layer.c0, op.c1, d)
-        if kind != "softmax":
             op.clip_lo, op.clip_hi = activation_bounds(layer.activation, layer.out_q.scale0,
                                                        layer.out_q.zp0)
+        else:
+            op = mac_op(idx, layer, in_shape, out_shape)
+            if op is None:
+                break
         a, b = _smem_split([o.lanes_out for o in ops] + [op.lanes_out], in_lanes)
         if a + b > SMEM_BYTES:
             break  # the port's shared-memory rule (module docstring)
@@ -298,6 +281,35 @@ def plan_flat(graph: Graph, max_layers: int | None = None):
     meta = dict(in_lanes=in_lanes, in_shape=tuple(graph.input_shape),
                 out_shape=ops[-1].out_shape, out_lanes=ops[-1].lanes_out)
     return ops, n, meta
+
+
+def mac_op(idx: int, layer, in_shape: tuple, out_shape: tuple) -> FlatOp | None:
+    """The op of a Conv2D, DepthwiseConv2D or FullyConnected layer with
+    every ``w_zp == 0`` (kind ``"dw"``, ``"pw"``: a 1x1 conv over a multiple
+    of 4 channels, ``"conv"`` or ``"fc"``), its epilogue constants and clip
+    bounds; None when ``d = -in_zp * colsum`` leaves int32 on some output
+    lane."""
+    in_zp = layer.in_q.zp0
+    d = -np.int64(in_zp) * _colsum(layer, in_shape)
+    if np.any(d != d.astype(np.int32)):
+        return None
+    c_out = out_shape[-1]
+    op = FlatOp("fc", idx, in_shape, out_shape, in_zp=in_zp, out_zp=layer.out_q.zp0)
+    if isinstance(layer, DepthwiseConv2DLayer):
+        op.kind, op.geom, op.weights = "dw", layer.geom, np.array(layer.weights)
+    elif isinstance(layer, Conv2DLayer):
+        op.geom = layer.geom
+        one = (layer.geom.k_rows, layer.geom.k_cols) == (1, 1)
+        op.kind = "pw" if one and in_shape[2] % 4 == 0 else "conv"
+        op.weights = np.array(layer.filters)
+    else:
+        op.weights = np.array(layer.weights)
+    op.bias0 = (np.float32(layer.out_q.zp0) + layer.c0.astype(np.float32)).astype(np.float32)
+    op.c1 = broadcast_per_channel(layer.c1, c_out, np.float32)
+    op.m, op.bias_q = multiplier_scale(op.c1), fixed_bias(layer.c0, op.c1, d)
+    op.clip_lo, op.clip_hi = activation_bounds(layer.activation, layer.out_q.scale0,
+                                               layer.out_q.zp0)
+    return op
 
 
 def fixed_bias(c0, c1: np.ndarray, d: np.ndarray) -> np.ndarray | None:

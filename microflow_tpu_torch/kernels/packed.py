@@ -1,12 +1,9 @@
 """The packed-pipeline kernel (CUDA, ``csrc/packed.cu``): backend ``"packed"``.
 
 Port of ``microflow_tpu/kernels/packed.py::build_packed_kernel``: the
-MobileNet-style depthwise/pointwise prefix of a graph in one launch, each
-sample's activation held as ``H + 2`` rows of ``W*C`` int8 lanes, the two
-*guard rows* holding the zero point so the three vertical taps of a 3x3
-window need no bounds test.  Ops: the stem (a 3x3 depth-multiplier
-depthwise conv over the single-channel input, any stride), 3x3 depthwise
-convs (stride 1 or 2) and 1x1 convs.
+MobileNet-style depthwise/pointwise prefix of a graph in one launch.  Ops:
+the stem (a 3x3 depth-multiplier depthwise conv over the single-channel
+input, any stride), 3x3 depthwise convs and 1x1 convs.
 
 ``plan_packed`` keeps every packing rule of the JAX package, so that
 ``n_layers`` and ``meta`` are its: a 3x3 stem on a single-channel int8
@@ -20,17 +17,26 @@ the stem and the depthwise layers use SAME padding, the pointwise layers
 have column stride 1, and a stride-2 depthwise layer is followed by an
 even width.
 
-The per-lane planes stay the JAX package's (``_requant_planes``): ``d`` =
+The plain version, ``packed_reference`` on the ``PackedOp``s, is the JAX
+kernel's algebra: each activation held as ``H + 2`` rows of ``W*C`` lanes,
+the two *guard rows* holding the zero point, and per-lane planes ``d`` =
 ``-in_zp * wsum`` plus the constant that the horizontal out-of-bounds taps
-would add (``edge_d``), ``bias0`` and ``c1``.  The TPU's 128-lane tap
-matrices are not carried over: they ran a depthwise conv on the matrix
-unit at 128x the useful multiply-adds.  On the card a tap outside the row
-is skipped and its constant comes from ``d``, never both.  Where the JAX
-kernel sweeps a stride-2 depthwise layer at every column and folds the
-column decimation into the next pointwise matrix, the port computes the
-true strided output, reading the planes at the swept columns it keeps.
-Every requant rounds half away from zero: ``clip(roundf(bias0 + c1 *
-f32(q)), lo, hi)``, the multiply and the add rounded apart.
+would add (``edge_d``), ``bias0`` and ``c1``; a tap outside the row is
+skipped and its constant comes from ``d``.  Where the JAX kernel sweeps a
+stride-2 depthwise layer at every column and folds the column decimation
+into the next pointwise matrix, the plain version computes the true
+strided output, reading the planes at the swept columns it keeps.  Every
+requant rounds half away from zero: ``clip(roundf(bias0 + c1 * f32(q)),
+lo, hi)``, the multiply and the add rounded apart.
+
+The card runs another plan of the same function (``device_ops``): the
+flat kernel's ops of the same layers in the flat descriptor layout
+(``pack_plan(ops, "exact")``), which the shared strip, tensor-core and
+general paths read with no guard rows and no planes.  Both forms compute
+``sum over in-bounds taps (x - in_zp) * w`` per output (the top and left
+SAME padding of a 3x3 window is 1, as the guard rows and ``edge_d``
+assume), then the same epilogue, so the kernel's bits are the plain
+version's; the CPU tests hold the two forms equal.
 """
 
 from __future__ import annotations
@@ -47,16 +53,11 @@ from ..core.activation import activation_bounds
 from ..core.numerics import broadcast_per_channel, f32, round_away
 from ..core.tensor import ViewPadding
 from . import LAUNCHES, build
-from .flatpack import SMEM_BYTES, PlanBuffer, _smem_split
+from .flatpack import NF, SMEM_BYTES, FlatOp, mac_op, pack_plan
+from .megakernel import op_path
 
 LANE = 128
 MAX_LANES = 2048
-
-# Descriptor layout; csrc/packed.cu reads the same numbers.
-NF = 20  # int32 fields per op descriptor
-(F_KIND, F_IH, F_IW, F_IC, F_OH, F_OW, F_OC, F_SR, F_SC, F_PCS, F_OUTZP, F_LO, F_HI,
- F_W, F_D, F_BIAS, F_C1) = range(17)
-KINDS = {"stem": 0, "dw": 0, "pw": 1}
 
 
 @dataclass
@@ -274,32 +275,18 @@ def packed_reference(ops: list, x: torch.Tensor) -> torch.Tensor:
 # --- the device plan ----------------------------------------------------------
 
 
-def pack_packed(ops: list) -> tuple[np.ndarray, int, int]:
-    """The plan as one byte buffer for the kernel (``NF`` int32 fields an
-    op, then the constants, 16-byte aligned) and its two shared-memory
-    buffer sizes (each ``(rows + 2) * lanes``)."""
-    plan = PlanBuffer(len(ops), NF)
-    for f, op in zip(plan.desc, ops):
-        f[F_KIND] = KINDS[op.kind]
-        f[F_IH], f[F_IW], f[F_IC] = op.h_in, op.w_in, op.c_in
-        f[F_OH], f[F_OW], f[F_OC] = op.h_out, op.w_out, op.c_out
-        f[F_SR], f[F_SC], f[F_PCS] = op.stride, op.stride_cols, op.plane_step
-        f[F_OUTZP], f[F_LO], f[F_HI] = op.out_zp, int(op.clip_lo), int(op.clip_hi)
-        if op.kind != "pw":
-            f[F_W] = plan.put(op.weights.reshape(9, op.c_out))  # [9][C]
-        elif op.c_in % 4 == 0:
-            # [C_in/4][C_out] words: word (k, f) packs input channels
-            # 4k..4k+3 of filter f, so neighbouring threads read neighbouring words
-            words = op.weights.reshape(op.c_out, op.c_in // 4, 4).transpose(1, 0, 2)
-            f[F_W] = plan.put(np.ascontiguousarray(words).view(np.int32).reshape(-1, op.c_out))
-        else:
-            f[F_W] = plan.put(np.ascontiguousarray(op.weights.T))  # [C_in][C_out]
-        f[F_D] = plan.put(op.d_plane.astype(np.int32))
-        f[F_BIAS] = plan.put(op.bias_plane.astype(np.float32))
-        f[F_C1] = plan.put(op.c1_plane.astype(np.float32))
-    sizes = [(op.h_out + 2) * op.w_out * op.c_out for op in ops]
-    smem_a, smem_b = _smem_split(sizes, (ops[0].h_in + 2) * ops[0].w_in)
-    return plan.bytes(), smem_a, smem_b
+def device_ops(graph: Graph, n_layers: int) -> list[FlatOp]:
+    """The device plan's ops: the flat kernel's ``FlatOp`` of each of the
+    first ``n_layers`` layers (``kernels/flatpack.py::mac_op``), as
+    ``plan_flat(graph, max_layers=n_layers)[0]`` gives them wherever the
+    flat planner takes the prefix.  Every layer ``plan_packed`` takes is a
+    3x3 depthwise conv or a 1x1 conv over at most 128 channels with every
+    ``w_zp == 0``, so its ``d`` fits int32 and ``mac_op`` gives its op."""
+    ops, shape = [], tuple(graph.input_shape)
+    for i, layer in enumerate(graph.layers[:n_layers]):
+        ops.append(mac_op(i, layer, shape, tuple(layer.out_shape)))
+        shape = ops[-1].out_shape
+    return ops
 
 
 def packed_bound(ops: list, batch: int) -> tuple[int, int]:
@@ -313,20 +300,29 @@ def packed_bound(ops: list, batch: int) -> tuple[int, int]:
 
 
 class PackedKernel:
-    """``packed_fn``: int8 [B, H, W, 1] -> int8 [B, h_out, w_out, c_out].
-    CUDA tensors launch the kernel on the plan's device buffer (built
-    once); CPU tensors run ``packed_reference``."""
+    """``packed_fn``: int8 [B, H, W, 1] -> int8 [B, h_out, w_out, c_out] for
+    the ops of ``plan_packed`` (the first ``len(ops)`` layers of ``graph``).
+    CUDA tensors launch the kernel on the device plan's buffer (built
+    once); CPU tensors run ``packed_reference``.  ``paths`` names each op's
+    path in the kernel (``kernels/megakernel.py::op_path``), without a
+    card."""
 
-    def __init__(self, ops: list, device: torch.device):
+    def __init__(self, graph: Graph, ops: list, device: torch.device):
         self.ops = ops
         self.device = device
         first, last = ops[0], ops[-1]
         self.in_shape = (first.h_in, first.w_in, 1)
         self.out_shape = (last.h_out, last.w_out, last.c_out)
-        buf, self.smem_a, self.smem_b = pack_packed(ops)
+        self.flat_ops = device_ops(graph, len(ops))
+        buf, split = pack_plan(self.flat_ops, "exact")
+        self.smem_a, self.smem_b = split["smem_a"], split["smem_b"]
         if self.smem_a + self.smem_b > SMEM_BYTES:
             raise ValueError(f"packed: one sample needs {self.smem_a + self.smem_b} bytes of "
                              f"shared memory, more than the {SMEM_BYTES} one block may use")
+        n = len(ops)
+        # the host copy of the descriptors, which the entry point checks
+        self.desc = buf[:n * NF * 4].view(np.int32).reshape(n, NF).copy()
+        self.paths = [op_path(row) for row in self.desc]
         self.plan = torch.from_numpy(buf).to(device) if device.type == "cuda" else None
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -346,9 +342,9 @@ class PackedKernel:
             return out
         fn = build.library("packed").mf_packed
         with torch.cuda.device(x.device):
-            rc = fn(x.data_ptr(), out.data_ptr(), b, self.plan.data_ptr(), len(self.ops),
-                    self.ops[0].pad_value, self.smem_a, self.smem_b,
-                    torch.cuda.current_stream().cuda_stream)
+            rc = fn(x.data_ptr(), out.data_ptr(), b, self.plan.data_ptr(), self.desc.ctypes.data,
+                    len(self.ops), math.prod(self.in_shape), math.prod(self.out_shape),
+                    self.smem_a, self.smem_b, torch.cuda.current_stream().cuda_stream)
         build.check(rc, "packed")
         LAUNCHES["packed"] += 1
         return out
@@ -360,8 +356,8 @@ def build_packed_kernel(graph: Graph, max_layers: int | None = None, device=None
 
     Returns ``(packed_fn, n_layers, meta)``, or None when the graph does
     not pack.  ``packed_fn(x: int8 [B, H, W, 1]) -> int8 [B, h_out, w_out,
-    c_out]`` takes any ``B >= 0``; the guard rows are the kernel's own.  The
-    weights are baked into the plan at build.
+    c_out]`` takes any ``B >= 0``.  The weights are baked into the plan at
+    build.
     """
     from ..compiler.builder import resolve_device
 
@@ -370,4 +366,4 @@ def build_packed_kernel(graph: Graph, max_layers: int | None = None, device=None
     if plan is None:
         return None
     ops, n_layers, meta = plan
-    return PackedKernel(ops, device), n_layers, meta
+    return PackedKernel(graph, ops, device), n_layers, meta

@@ -11,9 +11,9 @@ Builds the kernel of every prefix of the model's plan (``--kernel flat``:
 ``megakernel``: the first k layers of the first segment of the ``fused``
 forward; ``packed``: the first k ops of the packed plan), times each with
 CUDA events on the same input, and prints one JSON line: per op its layer,
-kind (``--kernel megakernel``: its path in the kernel, ``op_path``),
-output shape, multiply-adds per sample, (``--kernel flat``) the weight
-bytes a block loads per sample for a 1x1 conv (the tensor-core
+kind (``--kernel megakernel`` and ``packed``: its path in the kernel,
+``op_path``), output shape, multiply-adds per sample, (``--kernel flat``)
+the weight bytes a block loads per sample for a 1x1 conv (the tensor-core
 path: its m-tile's A fragments once per work item of ``NT`` pixel tiles;
 ``op_pw``: one byte per multiply-add), and its marginal time (the
 prefix ending at it minus the prefix before; the flat kernel's first two
@@ -82,8 +82,9 @@ def plan_prefixes(kernel: str, g):
                                                s.gather, s.shapes[:k]), seg.params, seg.device)
         return ops, 1, make, s.in_shape
     full = build_packed_kernel(g, device="cuda")[0]
-    ops = [(o.layer_idx, o.kind, (o.h_out, o.w_out, o.c_out), o.macs()) for o in full.ops]
-    return ops, 1, lambda k: PackedKernel(full.ops[:k], full.device), full.in_shape
+    ops = [(o.layer_idx, path, (o.h_out, o.w_out, o.c_out), o.macs())
+           for o, path in zip(full.ops, full.paths)]
+    return ops, 1, lambda k: PackedKernel(g, full.ops[:k], full.device), full.in_shape
 
 
 def time_ms(fn, iters: int) -> float:

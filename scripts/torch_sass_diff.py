@@ -3,7 +3,7 @@
 the port: a change against its parent.
 
     python3 scripts/torch_sass_diff.py PARENT CHANGE
-        [--source flatpack] [--pair flat_kernelEPKa=flat_kernelILb0E ...]
+        [--source flatpack] [--pair flat_kernelILb0E=flat_kernelILb0E ...]
 
 PARENT and CHANGE are the roots of two checkouts (a ``git archive`` of each
 will do).  Each builds ``microflow_tpu_torch/csrc/<source>.cu`` with its own
@@ -61,7 +61,8 @@ def main() -> int:
     ap.add_argument("parent")
     ap.add_argument("change")
     ap.add_argument("--source", default="flatpack")
-    ap.add_argument("--pair", nargs="+", default=["flat_kernelEPKa=flat_kernelILb0E"])
+    ap.add_argument("--pair", nargs="+",
+                    default=["flat_kernelILb0E=flat_kernelILb0E", "flat_kernelILb1E=flat_kernelILb1E"])
     args = ap.parse_args()
     old, new = sass(args.parent, args.source), sass(args.change, args.source)
     pairs = []

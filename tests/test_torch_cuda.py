@@ -212,6 +212,8 @@ def _graph(name):
         return chip_smoke.conv_graph(np.random.default_rng(0), wzp=True)
     if name == "packed_graph":
         return chip_smoke.packed_graph(np.random.default_rng(0))
+    if name == "packed_edge_graph":
+        return chip_smoke.packed_edge_graph(np.random.default_rng(0))
     if name == "pw_edge_graph":
         return chip_smoke.pw_edge_graph(np.random.default_rng(0))
     if name == "dw_edge_graph":
@@ -267,9 +269,15 @@ def test_megakernel_refuses_a_plan_its_reads_do_not_fit(cuda, field, value):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,max_layers", [("person_detect", None), ("person_detect", 5),
                                              ("person_detect", 9), ("person_detect", 15),
-                                             ("packed_graph", None)])
+                                             ("packed_graph", None),
+                                             ("packed_edge_graph", None)])
 def test_packed_kernel_matches_plain(cuda, name, max_layers):
+    """Bit-equal to the plain version; ``packed_edge_graph`` takes every
+    general path of the kernel and puts its last 1x1 conv's epilogue on the
+    exact2 corners, +-k.5 and past both rails."""
     packed_fn, n, meta = build_packed_kernel(_graph(name), max_layers=max_layers, device=cuda)
+    if name == "packed_edge_graph":
+        assert packed_fn.paths == chip_smoke.PACKED_EDGE_PATHS
     rng = np.random.default_rng(n)
     for batch in (64, 3, 0):
         x = torch.from_numpy(rng.integers(-128, 128, (batch, meta["in_rows"], meta["in_cols"], 1),
@@ -279,6 +287,22 @@ def test_packed_kernel_matches_plain(cuda, name, max_layers):
         assert LAUNCHES["packed"] == before + (batch > 0)
         assert got.shape == (batch, meta["h_out"], meta["w_out"], meta["c_out"])
         assert torch.equal(got, packed_reference(packed_fn.ops, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [("F_EXACT", 0), ("F_DW3", 1), ("F_IN", 0)])
+def test_packed_refuses_a_plan_its_reads_do_not_fit(cuda, field, value):
+    """The entry point rechecks the plan's descriptors and refuses the
+    launch: the last 1x1 conv of person_detect's prefix marked to round
+    exact2, or on the 3x3 strips, or taking another tensor than the one
+    before it.  Nothing runs another path in its place."""
+    packed_fn, _, _ = build_packed_kernel(parse(model_path("person_detect")), device=cuda)
+    packed_fn.desc[-1, getattr(tmega, field)] = value
+    x = torch.zeros((2, *packed_fn.in_shape), dtype=torch.int8, device=cuda)
+    before = LAUNCHES["packed"]
+    with pytest.raises(RuntimeError, match="packed launch failed"):
+        packed_fn(x)
+    assert LAUNCHES["packed"] == before
 
 
 @pytest.mark.cuda
