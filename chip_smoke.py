@@ -11,10 +11,15 @@ line; any failure raises and the script exits non-zero:
 2. build: the six kernels of ``microflow_tpu_torch/csrc/`` with ``nvcc``,
    in parallel; ``ptxas`` registers, stack and spills of every entry
    function, and a check that the exact2 flat kernel, the megakernel and
-   the packed kernel keep 64 registers, no stack and no spills.
+   the packed kernel keep 64 registers, no stack and no spills, and that
+   ``qgemm``'s tensor-core instantiations have no stack and no spills.
 3. kernels: each kernel held bit-equal against its plain torch version:
    ``qgemm``/``qdwconv`` at every layer shape of sine, speech and
-   person_detect (batch 64) and on edge cases (``qdwconv``'s, on its
+   person_detect (batch 64) and on edge cases (``qgemm``'s: the epilogue
+   triples on both of its paths, ``__dp4a`` at K = 4 and the tensor cores
+   at K = 128, and every (M, K, N) of ``QGEMM_MMA_EDGES`` and X at 1 and 4
+   bytes past an aligned address on the tensor cores, each check naming
+   its path, counted per path on the phase's line; ``qdwconv``'s, on its
    unpadded input, at the edges of its 3x3 tile paths and of its general
    path: ``DW_EDGE_CASES``); ``flatpack`` on
    person_detect (whole, and its first 2 and 12 layers), speech and sine at
@@ -54,7 +59,9 @@ line; any failure raises and the script exits non-zero:
    multiply-add triples that an FMA would round otherwise.  Then each is
    timed beside its plain version and its bound: the per-op kernels at
    person_detect's shapes at batch 8192 (``qgemm`` also beside
-   ``torch._int_mm``, ``qdwconv`` beside cuDNN's depthwise ``conv2d`` in
+   ``torch._int_mm``, both also on the device alone, replayed from a CUDA
+   graph, and on its other path, each shape naming the path the rule
+   gives it; ``qdwconv`` beside cuDNN's depthwise ``conv2d`` in
    f32 with TF32 off on the padded input, the stem's channel repeated to
    all 8, made outside the timed call, first checked equal to the integer
    accumulators),
@@ -163,6 +170,8 @@ from microflow_tpu_torch.kernels.qdwconv import (
     zp_padded,
 )
 from microflow_tpu_torch.kernels.qdwconv import plan as qdwconv_plan
+from microflow_tpu_torch.kernels.qgemm import PATHS as QGEMM_PATHS
+from microflow_tpu_torch.kernels.qgemm import qgemm_path
 from microflow_tpu_torch.models import GOLDENS, model_path
 from microflow_tpu_torch.ops.depthwise_conv_2d import window_sum
 
@@ -195,6 +204,9 @@ PD_PATHS = {"fused": {"megakernel": 4},
             "hybrid": {"megakernel": 4, "qdwconv": 20, "qgemm": 16},  # layers 0-8 per op
             "packed": {"packed": 4, "qdwconv": 8, "qgemm": 12}}  # layers 23-30 per op
 ACTS = (FusedActivation.NONE, FusedActivation.RELU, FusedActivation.RELU6)
+# qgemm's tensor-core path: every (M, K, N) of these is checked
+QGEMM_MMA_EDGES = {"M": (1, 5, 513, 70000), "K": (64, 65, 100, 130, 256, 4000),
+                   "N": (2, 4, 11, 16, 129, 250, 256)}
 DW_PATHS = {PATH_GENERAL: "general", PATH_S1: "3x3/s1", PATH_S2: "3x3/s2", PATH_STEM: "stem"}
 # qdwconv edge cases: (B, H, W, input channels, C, KH, KW, row and column
 # strides, padding, centred weights fit int8, in_zp, bytes the input lies
@@ -289,7 +301,8 @@ class Recorder:
 def _shape(name, args, kw) -> dict:
     if name == "qgemm":
         (m, k), n = args[0].shape, args[1].shape[1]
-        return {"M": m, "K": k, "N": n, "act": kw["activation"].value}
+        return {"M": m, "K": k, "N": n, "act": kw["activation"].value,
+                "path": qgemm_path(m, k, n)}
     b, h, w, cin = args[0].shape
     return {"B": b, "H": h, "W": w, "Cin": cin, "C": args[1].shape[2], "kh": kw["kh"],
             "kw": kw["kw"], "sr": kw["sr"], "sc": kw["sc"], "pad": [kw["pad_top"], kw["pad_left"]],
@@ -380,19 +393,23 @@ def edge_cases(dev, rng) -> dict:
         out = getattr(kernels, name)(*args, **kw)
         ref = getattr(kernels, f"{name}_reference")(*args, **kw)
         errs[name].append({"case": label, "max_abs_err": max_abs_err(out, ref)})
+        if name == "qgemm":
+            errs[name][-1]["path"] = qgemm_path(*args[0].shape, args[1].shape[1])
 
     i8 = lambda shape: torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).to(dev)
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
     i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
 
-    # epilogue: X = 0 makes q = d[n], so each column carries one triple
+    # epilogue: X = 0 makes q = d[n], so each column carries one triple;
+    # at K = 4 on the __dp4a path, at K = 128 on the tensor cores
     q, b0, c1, n_fma = epilogue_triples(rng, 1024)
     n = len(q)
-    for act in ACTS:
-        kw = dict(activation=act, out_scale=0.05, out_zp=-3)
-        check("qgemm", (torch.zeros((5, 4), dtype=torch.int8, device=dev),
-                        i8((4, n)), i32(np.zeros(n)), i32(q), f32(b0), f32(c1)), kw,
-              f"epilogue {act.value} ({n_fma} fma-sensitive)")
+    for k in (4, 128):
+        for act in ACTS:
+            kw = dict(activation=act, out_scale=0.05, out_zp=-3)
+            check("qgemm", (torch.zeros((5, k), dtype=torch.int8, device=dev),
+                            i8((k, n)), i32(np.zeros(n)), i32(q), f32(b0), f32(c1)), kw,
+                  f"epilogue K{k} {act.value} ({n_fma} fma-sensitive)")
     # K not a multiple of 4 or 16, per-column w_zp, all activations
     for (M, K, N) in ((5, 37, 11), (300, 1, 16), (77, 5, 33), (64, 4000, 4), (1000, 18, 70),
                       (513, 130, 129)):
@@ -402,6 +419,33 @@ def edge_cases(dev, rng) -> dict:
             check("qgemm", (i8((M, K)), i8((K, N)), i32(rng.integers(-9, 9, N)),
                             i32(rng.integers(-5000, 5000, N)), f32(rng.normal(0, 20, N)),
                             f32(rng.uniform(1e-4, 0.01, N))), kw, f"M{M} K{K} N{N} {act.value}")
+    # the tensor-core path at its edges: K past multiples of 4, 32 and 64
+    # and speech's 4000, N below 4 and past multiples of 16 and 128, M not
+    # a multiple of a work item; per-column w_zp in [-9, 9), c1 scaled to
+    # K so that few outputs saturate, every activation
+    for M in QGEMM_MMA_EDGES["M"]:
+        for K in QGEMM_MMA_EDGES["K"]:
+            x = i8((M, K))
+            for N in QGEMM_MMA_EDGES["N"]:
+                args = (x, i8((K, N)), i32(rng.integers(-9, 9, N)),
+                        i32(rng.integers(-5000, 5000, N)), f32(rng.normal(0, 20, N)),
+                        f32(rng.uniform(0.5, 2.0, N) * 20 / (np.sqrt(K) * 5500)))
+                for act in ACTS:
+                    kw = dict(activation=act, out_scale=float(rng.uniform(0.01, 0.1)),
+                              out_zp=int(rng.integers(-20, 20)))
+                    check("qgemm", args, kw, f"M{M} K{K} N{N} {act.value}")
+            del x
+    # X at 1 and 4 bytes past an aligned address (the byte and word reads)
+    for (M, K, N, offset) in ((513, 128, 129, 1), (70000, 256, 256, 1), (513, 128, 64, 4),
+                              (1000, 100, 16, 1), (77, 64, 8, 4)):
+        buf = torch.empty(M * K + offset, dtype=torch.int8, device=dev)
+        x = buf[offset:].view(M, K)
+        x.copy_(i8((M, K)))
+        args = (x, i8((K, N)), i32(rng.integers(-9, 9, N)), i32(rng.integers(-5000, 5000, N)),
+                f32(rng.normal(0, 20, N)), f32(rng.uniform(0.5, 2.0, N) * 20 / (np.sqrt(K) * 5500)))
+        for act in ACTS:
+            check("qgemm", args, dict(activation=act, out_scale=0.05, out_zp=-3),
+                  f"M{M} K{K} N{N} +{offset} {act.value}")
     # depthwise, unpadded input: the tile paths' edges (smaller than a strip
     # and a band, odd sizes at stride 2, VALID, the stem at an odd width,
     # rows staged in 16-, 4- and 1-byte units, several samples a block, up
@@ -1093,6 +1137,21 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device ms a call: ``iters`` calls captured in one CUDA graph, replayed
+    between two CUDA events, so the host's cost a call is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    ms = time_ms(graph.replay, 1, warmup=0) / iters
+    del graph
+    return ms
+
+
 def bound(name, args, kw, out) -> tuple[float, str, int, int]:
     """Least time for the call: (bytes moved at HBM rate) vs (operations at
     the int8 peak), the larger; each input read once, the output written
@@ -1171,6 +1230,16 @@ def time_kernels(calls) -> dict:
                    "library_ms": None}
             if name == "qgemm":
                 row["library_ms"] = time_ms(int_mm_call(args), 20)
+                # device times (a small call's ms is the host's); the other
+                # path on the same call: what the rule's threshold rests on
+                row["device_ms"] = graph_ms(lambda: kern(*args, **kw))
+                row["library_device_ms"] = graph_ms(int_mm_call(args))
+                other = QGEMM_PATHS[1 - QGEMM_PATHS.index(row["shape"]["path"])]
+                okw = {**kw, "path": other}
+                row["other_path"] = {
+                    "path": other, "max_abs_err": max_abs_err(kern(*args, **okw), out),
+                    "ms": time_ms(lambda: kern(*args, **okw), 20),
+                    "device_ms": graph_ms(lambda: kern(*args, **okw))}
             else:
                 lib, acc = dw_conv_call(args, kw)
                 row["library_max_abs_err"] = int(
@@ -1187,6 +1256,16 @@ def time_kernels(calls) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "launches_per_forward": len(rows), "per_call": rows,
         }
+        if name == "qgemm":
+            res[name]["by_path"] = {p: {
+                "launches": sum(r["shape"]["path"] == p for r in rows),
+                **{k: sum(r[k] for r in rows if r["shape"]["path"] == p)
+                   for k in ("ms", "device_ms", "bound_ms", "library_ms", "library_device_ms")},
+                **{f"other_path_{k}": sum(r["other_path"][k] for r in rows
+                                          if r["shape"]["path"] == p)
+                   for k in ("ms", "device_ms")}} for p in QGEMM_PATHS}
+            if any(r["other_path"]["max_abs_err"] for r in rows):
+                raise AssertionError("qgemm's two paths differ at a timed shape")
         if name == "qdwconv":
             res[name]["library_max_abs_err"] = max(r["library_max_abs_err"] for r in rows)
             if res[name]["library_max_abs_err"]:
@@ -1295,6 +1374,10 @@ def main() -> int:
         (fn,) = [u for f, u in usage.items() if key in f]
         if fn["registers"] > 64 or fn["stack"] or fn["spill_stores"] or fn["spill_loads"]:
             raise AssertionError(f"{key}: {fn}")
+    # qgemm's tensor-core instantiations: no stack, no spills
+    for f, fn in usage.items():
+        if "qgemm_mma" in f and (fn["stack"] or fn["spill_stores"] or fn["spill_loads"]):
+            raise AssertionError(f"{f}: {fn}")
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(0)
@@ -1312,6 +1395,8 @@ def main() -> int:
     emit({"phase": "kernels_vs_plain", "tolerance": "bit-equal (max_abs_err 0)",
           "max_abs_err": errs, "checks": {k: len(v) for k, v in checks.items()},
           "model_shapes": {k: len(shape_errs[k]) for k in shape_errs},
+          "qgemm_checks_by_path": {p: sum(c.get("path", c.get("shape", {}).get("path")) == p
+                                          for c in checks["qgemm"]) for p in QGEMM_PATHS},
           "whole_network_cases": {k: [c["case"] for c in v]
                                   for k, v in whole_net["checks"].items()},
           "fma_sensitive_lanes": whole_net["fma_sensitive_lanes"],
@@ -1324,7 +1409,8 @@ def main() -> int:
           "packed_edge_paths": whole_net["packed_edge_paths"],
           "packed_exact2_corner_outputs": whole_net["packed_exact2_corner_outputs"]})
     if any(errs.values()):
-        raise AssertionError(f"kernel differs from its plain version: {errs}")
+        bad = [c for v in checks.values() for c in v if c["max_abs_err"]][:20]
+        raise AssertionError(f"kernel differs from its plain version: {errs}; {bad}")
 
     pd = compile_tflite(model_path("person_detect"), name="person_detect", backend="pallas")
     with Recorder("capture") as rec:

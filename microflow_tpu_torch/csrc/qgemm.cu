@@ -9,18 +9,49 @@
 //   y[m,n]   = roundf(bias0[n] + c1[n] * f32(q))            (f32 mul, then add)
 //   out      = clip(y, lo, hi) as int8                      (activation folded in)
 //
-// What bounds it on an H100: bytes.  The shapes it serves have K = 1..256
-// (and 4000 once, with N = 4), so each X byte feeds at most N <= 256
-// multiply-adds; at int8 rates that is far below the ~600 operations per
-// byte where the tensor cores would become the limit.  The design therefore
-// reads X once through shared memory in coalesced words, keeps all
-// accumulators in registers, and applies the epilogue before a single int8
-// store: no i32 tensor touches device memory.  The tile adapts to narrow N
-// (BN = 16, 32 or 64) and to short K (BK = 4 .. 32 bytes) so little of the
-// block's work is padding.  Products use __dp4a (four int8 products and a
-// sum in one instruction); the row sums ride along as dp4a against ones.
-// Without tensor cores, the widest layers (K = N = 256) run out of integer
-// issue rate well before bytes; a tensor-core path is later work.
+// What bounds it on an H100: bytes, at best.  Each X byte feeds N <= 256
+// multiply-adds (the shapes served have K = 1..256, and 4000 once, with
+// N = 4), far below the ~600 operations per byte where the tensor cores
+// would be the limit.  But the products of the wide shapes cost the CUDA
+// cores more than their bytes, and every output costs the epilogue three
+// conversions on the SM's 16-a-clock pipe, so there are two paths, chosen
+// by a rule on shape alone (kernels/qgemm.py::qgemm_path, which the wrapper
+// passes in as `path`):
+//
+// - "dp4a" (qgemm_kernel, K < 64): X is read once through shared memory in
+//   coalesced words, all accumulators stay in registers, and the epilogue
+//   is applied before a single int8 store: no i32 tensor touches device
+//   memory.  The tile adapts to narrow N (BN = 16, 32 or 64) and to short K
+//   (BK = 4 .. 32 bytes) so little of the block's work is padding.
+//   Products use __dp4a (four int8 products and a sum in one instruction);
+//   the row sums ride along as dp4a against ones.
+// - "mma" (qgemm_mma, 64 <= K <= kMmaMaxK): the products on the int8
+//   tensor cores, mma.sync m16n8k32 (mma_s8.cuh), in op_pw_mma's
+//   orientation (segment_ops.cuh): output channels on the MMA's M
+//   (A = W^T), rows of X on its N (B; X is [M][K], the "col" layout B
+//   wants).  W arrives with every call (the "pallas" backend may swap
+//   weights), so each block first builds the A fragments of its up to
+//   kMaxTiles m-tiles of 16 output channels in shared memory from W, in
+//   kernels/flatpack.py::mma_fragments' order, one coalesced pass over W
+//   that transposes 4x4 blocks of bytes.  X goes through no shared memory:
+//   with the same K permutation inside each 64 channels, a lane reads 16
+//   contiguous bytes of its row for two k-steps with one load, straight
+//   from device memory.  What paces this path is the distinct bytes of X in
+//   flight: with one warp an m-tile, the warps of a block would all read
+//   the same rows.  So a warp's work item is kTiles tiles of 8 rows by every
+//   m-tile of its block: a row is read by one warp of each block of
+//   columns (whose blocks are neighbours in the grid, so the second read
+//   comes from L2), and each B word serves up to kMaxTiles MMAs.  The next
+//   64 channels (past the item's last, the next item's first) are loaded
+//   before the current ones' MMAs and the epilogue.  The row sums ride
+//   along: a __dp4a against ones per B word, two shuffles over the quad
+//   that holds a row and two that bring rows 2t and 2t+1 to the lanes that
+//   hold their accumulators.  The epilogue is epilogue.cuh's (the same
+//   operations as qgemm_kernel's), its constants staged in shared memory;
+//   a 4x4 byte transpose over lanes (two shuffles) turns each lane's four
+//   outputs into one word of four adjacent channels, stored with one
+//   4-byte store.  kTiles, kMaxTiles and kMinBlocks were chosen by
+//   scripts/torch_qgemm_sweep.py (PERF.md).
 //
 // Rounding: the epilogue is written with __fmul_rn/__fadd_rn, and the file is
 // built with -fmad=false, so bias0 + c1*q is a multiply and then an add, as in
@@ -29,6 +60,9 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "epilogue.cuh"
+#include "mma_s8.cuh"
 
 namespace {
 
@@ -167,15 +201,292 @@ cudaError_t launch_bk(const int8_t* x, const int8_t* w, const int32_t* wzp, cons
   return launch<BN, 32>(x, w, wzp, d, bias0, c1, out, M, K, N, lo, hi, vec_x, vec_out, s);
 }
 
+// --- the tensor-core path ----------------------------------------------------
+
+constexpr int kTiles = 2;             // tiles of 8 rows a warp's work item
+constexpr int kItemRows = 8 * kTiles;  // rows of X a work item
+constexpr int kMaxTiles = 4;          // m-tiles of 16 output channels a block
+constexpr int kMinBlocks = 3;         // blocks an SM (__launch_bounds__)
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxFragBytes = 65536;  // the most A fragment bytes a block stages
+constexpr int kMmaMaxK = 4096;        // one m-tile's 128 units of 512 bytes fill them
+constexpr int kMaxBlocks = 1024;      // blocks, all column chunks together
+
+// The B words of channels kb.. of the work item from row p0, lane 4g + t
+// reading row p0 + 8j + g for tile j: where more than 32 channels remain,
+// its 16 bytes kb+16t..kb+16t+15 (a pair of A units), else its 8 bytes
+// kb+8t..kb+8t+7 in words 0 and 1.  Bytes past K, and rows past M, are 0.
+// VEC = 2: K % 16 == 0 and X 16-byte aligned (one vector load); 1: K % 4
+// == 0 and X 4-byte aligned (words); 0: bytes.
+template <int VEC>
+__device__ __forceinline__ void load_b(const int8_t* x, long long p0, long long M, int K, int kb,
+                                       int g, int t, uint32_t (&w)[kTiles][4]) {
+  const bool pair = K - kb > 32;
+  const int c = kb + (pair ? 16 : 8) * t, nw = pair ? 4 : 2;
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[j][i] = 0;
+    const long long row = p0 + 8 * j + g;
+    if (row >= M || c >= K) continue;
+    const int8_t* p = x + row * K + c;
+    if constexpr (VEC == 2) {  // c + 4 * nw <= K
+      if (pair) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+        w[j][0] = v.x, w[j][1] = v.y, w[j][2] = v.z, w[j][3] = v.w;
+      } else {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+        w[j][0] = v.x, w[j][1] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i >= nw || c + 4 * i >= K) continue;
+        if constexpr (VEC == 1) {
+          w[j][i] = __ldg(reinterpret_cast<const uint32_t*>(p + 4 * i));
+        } else {
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (c + 4 * i + b < K) w[j][i] |= (uint32_t)(uint8_t)__ldg(p + 4 * i + b) << (8 * b);
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t requant_byte(int acc, int rs, int zp, int d, float b0, float c1,
+                                                 float lo, float hi) {
+  return (uint8_t)mf_round_away(mf_affine(b0, c1, acc - rs * zp + d), lo, hi);
+}
+
+// One launch serves output channels n0 = blockIdx.x * 16 * mt .. +16*mt-1
+// (mt <= kMaxTiles m-tiles; the blocks of one range of rows are neighbours
+// in the grid, so they read X while it is in L2) and work items
+// blockIdx.y * ipb .. +ipb-1 of kItemRows rows each.  Warp w takes the
+// block's items w, w + kWarps, ..., and every m-tile of each: a row of X is
+// read by one warp of the block, so the warps' loads in flight are all
+// distinct.  Dynamic shared memory: the epilogue constants of the block's
+// channels, int4 {wzp, d, bias0, c1} each, then their A fragments,
+// [mt][units][32 lanes][16 bytes], units = ceil(K / 32); rows past N and
+// channels past K are 0.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) qgemm_mma(
+    const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+    const int32_t* __restrict__ wzp, const int32_t* __restrict__ d,
+    const float* __restrict__ bias0, const float* __restrict__ c1,
+    int8_t* __restrict__ out, long long M, int K, int N, float lo, float hi, int mt, int items,
+    int ipb, int vec_w, int vec_out) {
+  extern __shared__ int4 smem[];
+  int4* consts = smem;
+  int4* frag = smem + 16 * mt;
+  const int units = (K + 31) >> 5;
+  const int n0 = blockIdx.x * 16 * mt;
+  const int live = min(mt, (N - n0 + 15) >> 4);  // m-tiles with a column < N
+
+  for (int r = threadIdx.x; r < 16 * mt; r += kThreads) {
+    const int n = n0 + r;
+    consts[r] = n < N ? make_int4(__ldg(wzp + n), __ldg(d + n), __float_as_int(__ldg(bias0 + n)),
+                                  __float_as_int(__ldg(c1 + n)))
+                      : make_int4(0, 0, 0, 0);
+  }
+  // The fragments: thread e takes channels c..c+3 (c = 4 * (e / quads)) of
+  // columns n..n+3 (n = n0 + 4 * (e % quads)), so neighbouring threads read
+  // neighbouring words of a row of W; the 4x4 block is transposed into one
+  // word of four channels per column, and each word goes to its lane and
+  // register: where more than 32 channels remain from kb = c & ~63, lane
+  // (c - kb) / 16 of unit kb / 32 + ((c - kb) / 8) % 2, else lane
+  // (c - kb) / 8 of unit kb / 32; register half ((c - kb) / 4) % 2 (words
+  // 0-1 or 2-3), and the row's half (g or g + 8) within it.
+  {
+    uint32_t* fw = reinterpret_cast<uint32_t*>(frag);
+    const int quads = 4 * mt;
+    for (int e = threadIdx.x; e < units * 8 * quads; e += kThreads) {
+      const int nq = e % quads, c = 4 * (e / quads), n = n0 + 4 * nq;
+      uint32_t rows[4], cols[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int k = c + r;
+        uint32_t v = 0;
+        if (k < K && n < N) {
+          const int8_t* p = w + (long long)k * N + n;
+          if (vec_w) {
+            v = __ldg(reinterpret_cast<const uint32_t*>(p));
+          } else {
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              if (n + b < N) v |= (uint32_t)(uint8_t)__ldg(p + b) << (8 * b);
+          }
+        }
+        rows[r] = v;
+      }
+      transpose4(rows, cols);
+      const int kb = c & ~63, off = c - kb;
+      const bool pair = K - kb > 32;
+      const int unit = (kb >> 5) + (pair ? (off >> 3) & 1 : 0);
+      const int lane_t = pair ? off >> 4 : off >> 3;
+      const int half = (off >> 2) & 1;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int r = 4 * nq + b;  // the block's row (output channel n0 + r)
+        fw[(((r >> 4) * units + unit) * 32 + 4 * (r & 7) + lane_t) * 4 + 2 * half +
+           ((r >> 3) & 1)] = cols[b];
+      }
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int first = blockIdx.y * ipb, last = min(first + ipb, items);
+  // Every tile's B words are read before the MMAs, and the next 64
+  // channels' (past the item's last, the next item's first 64) before this
+  // 64's, so the loads overlap each other, the MMAs and the epilogue.  Each
+  // A fragment serves kTiles MMAs, each B word kMaxTiles.  Every loop and
+  // branch around an MMA is warp-uniform, as mma.sync needs.
+  int item = first + warp;
+  uint32_t cur[kTiles][4];
+  if (item < last) load_b<VEC>(x, (long long)item * kItemRows, M, K, 0, g, t, cur);
+  for (; item < last; item += kWarps) {
+    const long long p0 = (long long)item * kItemRows;
+    int acc[kMaxTiles][kTiles][4], rs[kTiles];
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j) {
+      rs[j] = 0;
+#pragma unroll
+      for (int m = 0; m < kMaxTiles; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][j][i] = 0;
+    }
+    for (int kb = 0; kb < K; kb += 64) {
+      const bool more = kb + 64 < K, next = more || item + kWarps < last;
+      const bool pair = K - kb > 32;
+      uint32_t nxt[kTiles][4];
+      if (more) load_b<VEC>(x, p0, M, K, kb + 64, g, t, nxt);
+      else if (next) load_b<VEC>(x, p0 + kWarps * kItemRows, M, K, 0, g, t, nxt);
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) rs[j] = __dp4a((int)cur[j][i], 0x01010101, rs[j]);
+      const int4* a = frag + (kb >> 5) * 32 + lane;
+#pragma unroll
+      for (int m = 0; m < kMaxTiles; ++m) {
+        if (m < live) {
+          const int4 a0 = a[m * units * 32];
+#pragma unroll
+          for (int j = 0; j < kTiles; ++j) mma_s8(acc[m][j], a0, cur[j][0], cur[j][1]);
+          if (pair) {
+            const int4 a1 = a[m * units * 32 + 32];
+#pragma unroll
+            for (int j = 0; j < kTiles; ++j) mma_s8(acc[m][j], a1, cur[j][2], cur[j][3]);
+          }
+        }
+      }
+      if (next) {
+#pragma unroll
+        for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) cur[j][i] = nxt[j][i];
+      }
+    }
+
+    // Epilogue: lane 4g + t holds, of m-tile m, rows p0 + 8j + 2t + (0, 1)
+    // of channels na = n0 + 16m + g (registers 0, 1) and nb = na + 8 (2, 3).
+    // The row sums: the quad of row 8j + g adds its parts, then rows 2t and
+    // 2t + 1 come from lanes 8t and 8t + 4.
+    int r0[kTiles], r1[kTiles];
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j) {
+      int r = rs[j];
+      r += __shfl_xor_sync(0xffffffffu, r, 1);
+      r += __shfl_xor_sync(0xffffffffu, r, 2);
+      r0[j] = __shfl_sync(0xffffffffu, r, 8 * t);
+      r1[j] = __shfl_sync(0xffffffffu, r, 8 * t + 4);
+    }
+#pragma unroll
+    for (int m = 0; m < kMaxTiles; ++m) {
+      if (m >= live) continue;
+      const int nm = n0 + 16 * m, na = nm + g, nb = na + 8;
+      const int4 qa = consts[16 * m + g], qb = consts[16 * m + g + 8];
+      const float ba = __int_as_float(qa.z), ca = __int_as_float(qa.w);
+      const float bb = __int_as_float(qb.z), cb = __int_as_float(qb.w);
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j) {
+        const long long p = p0 + 8 * j + 2 * t;
+        const uint32_t v0 = requant_byte(acc[m][j][0], r0[j], qa.x, qa.y, ba, ca, lo, hi);
+        const uint32_t v1 = requant_byte(acc[m][j][1], r1[j], qa.x, qa.y, ba, ca, lo, hi);
+        const uint32_t v2 = requant_byte(acc[m][j][2], r0[j], qb.x, qb.y, bb, cb, lo, hi);
+        const uint32_t v3 = requant_byte(acc[m][j][3], r1[j], qb.x, qb.y, bb, cb, lo, hi);
+        if (vec_out) {
+          // Lanes g = 4h + i (i = 0..3) of one t hold, as bytes (v0..v3),
+          // row 4h+i of the 4x4 matrix whose column s is the word for row
+          // p + (s & 1), channels nm + 4h + 8 * (s >> 1) .. +3; transpose
+          // it over the four lanes (lane xor 8, then xor 4), lane i keeping
+          // column i.
+          const int i = g & 3;
+          const uint32_t v = v0 | v1 << 8 | v2 << 16 | v3 << 24;
+          uint32_t y = __shfl_xor_sync(0xffffffffu, v, 8);
+          const uint32_t u = i & 2 ? __byte_perm(y, v, 0x7632) : __byte_perm(v, y, 0x5410);
+          y = __shfl_xor_sync(0xffffffffu, u, 4);
+          const uint32_t word = i & 1 ? __byte_perm(u, y, 0x3715) : __byte_perm(u, y, 0x6240);
+          const long long pr = p + (i & 1);
+          const int n = nm + 4 * (g >> 2) + 8 * (i >> 1);
+          if (pr < M && n < N) *reinterpret_cast<uint32_t*>(out + pr * N + n) = word;
+        } else {
+          if (p < M) {
+            if (na < N) out[p * N + na] = (int8_t)v0;
+            if (nb < N) out[p * N + nb] = (int8_t)v2;
+          }
+          if (p + 1 < M) {
+            if (na < N) out[(p + 1) * N + na] = (int8_t)v1;
+            if (nb < N) out[(p + 1) * N + nb] = (int8_t)v3;
+          }
+        }
+      }
+    }
+  }
+}
+
+// The launch of qgemm_mma: as many m-tiles a block as cover N, at most
+// kMaxTiles, fewer where their fragments would pass kMaxFragBytes; work
+// items split evenly over at most kMaxBlocks blocks, a multiple of kWarps
+// items a block.
+template <int VEC>
+cudaError_t launch_mma(const int8_t* x, const int8_t* w, const int32_t* wzp, const int32_t* d,
+                       const float* bias0, const float* c1, int8_t* out, long long M, int K, int N,
+                       float lo, float hi, int vec_w, int vec_out, cudaStream_t s) {
+  const int units = (K + 31) / 32;
+  int mt = (N + 15) / 16 < kMaxTiles ? (N + 15) / 16 : kMaxTiles;
+  while (mt > 1 && mt * units * 512 > kMaxFragBytes) --mt;
+  const int chunks = (N + 16 * mt - 1) / (16 * mt);
+  const long long items = (M + kItemRows - 1) / kItemRows;
+  if (items > 0x7fffffff - kMaxBlocks * kWarps) return cudaErrorInvalidValue;  // int item indices
+  long long by = (items + kWarps - 1) / kWarps;
+  const long long cap = kMaxBlocks / chunks > 0 ? kMaxBlocks / chunks : 1;
+  if (by > cap) by = cap;
+  const long long ipb = ((items + by - 1) / by + kWarps - 1) / kWarps * kWarps;
+  by = (items + ipb - 1) / ipb;
+  const int smem = mt * (units * 512 + 16 * 16);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qgemm_mma<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  qgemm_mma<VEC><<<dim3((unsigned)chunks, (unsigned)by), kThreads, smem, s>>>(
+      x, w, wzp, d, bias0, c1, out, M, K, N, lo, hi, mt, (int)items, (int)ipb, vec_w, vec_out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Returns the CUDA error code of
 // the launch, 0 on success.  vec_x: K % 4 == 0 and x 4-byte aligned.
-// vec_out: N % 4 == 0 and out 4-byte aligned.
+// vec_out: N % 4 == 0 and out 4-byte aligned.  path: 0 = "dp4a"
+// (qgemm_kernel), 1 = "mma" (qgemm_mma, K <= kMmaMaxK), as
+// kernels/qgemm.py::qgemm_path chose it.
 extern "C" int mf_qgemm(const void* x, const void* w, const void* wzp, const void* d,
                         const void* bias0, const void* c1, void* out, long long M, int K, int N,
-                        float lo, float hi, int vec_x, int vec_out, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+                        float lo, float hi, int vec_x, int vec_out, int path, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || path < 0 || path > 1 || (path == 1 && K > kMmaMaxK))
+    return (int)cudaErrorInvalidValue;
   const auto* xp = static_cast<const int8_t*>(x);
   const auto* wp = static_cast<const int8_t*>(w);
   const auto* zp = static_cast<const int32_t*>(wzp);
@@ -185,7 +496,15 @@ extern "C" int mf_qgemm(const void* x, const void* w, const void* wzp, const voi
   auto* op = static_cast<int8_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (N <= 16)
+  if (path == 1) {
+    const int vec_w = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
+    if (K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+      err = launch_mma<2>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, vec_w, vec_out, s);
+    else if (vec_x)
+      err = launch_mma<1>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, vec_w, vec_out, s);
+    else
+      err = launch_mma<0>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, vec_w, vec_out, s);
+  } else if (N <= 16)
     err = launch_bk<16>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, vec_x, vec_out, s);
   else if (N <= 32)
     err = launch_bk<32>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, vec_x, vec_out, s);

@@ -37,7 +37,7 @@ _L = ctypes.c_longlong
 
 # C signature of each kernel's entry point: (symbol, argtypes).
 SIGNATURES = {
-    "qgemm": ("mf_qgemm", [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _I, _I, _P]),
+    "qgemm": ("mf_qgemm", [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _I, _I, _I, _P]),
     "qdwconv": ("mf_qdwconv",
                 [_P, _P, _P, _P, _P, _P] + [_I] * 14 + [_F, _F] + [_I] * 6 + [_P]),
     "flatpack": ("mf_flatpack", [_P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P]),

@@ -11,6 +11,10 @@ person_detect's 31 layers -- are exactly this GEMM):
 
 ``d[n] = K * in_zp * wzp[n] - in_zp * colsum(W)[n]`` folds every
 zero-point correction into one per-column constant.
+
+The kernel has two paths, chosen by ``qgemm_path`` on shape alone: the
+narrow shapes' ``__dp4a`` tiles and the wide shapes' int8 tensor cores
+(``mma.sync``).  Both compute the same bits.
 """
 
 from __future__ import annotations
@@ -20,6 +24,23 @@ import torch
 from ..core.activation import FusedActivation, activation_bounds
 from ..core.numerics import f32, round_away
 from . import LAUNCHES, build
+
+
+# The tensor-core path takes K from MMA_MIN_K to MMA_MAX_K (one m-tile's A
+# fragments fill the 64 KB a block stages).  At K = 64 it is 2.6-2.9x the
+# __dp4a tiles on person_detect's shapes; the shapes below keep the
+# __dp4a tiles (PERF.md has both paths' times there).
+MMA_MIN_K = 64
+MMA_MAX_K = 4096
+PATHS = ("dp4a", "mma")  # the C entry point's path argument is the index
+
+
+def qgemm_path(M: int, K: int, N: int) -> str:
+    """The kernel path of an [M, K] x [K, N] product: ``"mma"`` (the int8
+    tensor cores) for ``MMA_MIN_K <= K <= MMA_MAX_K``, else ``"dp4a"``.
+    A rule on shape (K alone), never on data; ``qgemm`` launches the path
+    it names."""
+    return "mma" if MMA_MIN_K <= K <= MMA_MAX_K else "dp4a"
 
 
 def requant_clip(q: torch.Tensor, bias0: torch.Tensor, c1: torch.Tensor, lo: int, hi: int):
@@ -65,9 +86,13 @@ def qgemm(
     activation: FusedActivation,
     out_scale: float,
     out_zp: int,
+    path: str | None = None,
 ) -> torch.Tensor:
-    """int8 [M, N].  CUDA tensors launch the kernel; CPU tensors run
+    """int8 [M, N].  CUDA tensors launch the kernel on ``path`` (default
+    ``qgemm_path(M, K, N)``; naming one is for measurement); CPU tensors run
     ``qgemm_reference``."""
+    if path is not None and (path not in PATHS or (path == "mma" and x.shape[-1] > MMA_MAX_K)):
+        raise ValueError(f"qgemm: no path {path!r} for K = {x.shape[-1]}")
     if x.device.type == "cpu":
         return qgemm_reference(x, w, wzp, d, bias0, c1, activation=activation,
                                out_scale=out_scale, out_zp=out_zp)
@@ -82,6 +107,7 @@ def qgemm(
     for t, what, dt in ((wzp, "wzp", torch.int32), (d, "d", torch.int32),
                         (bias0, "bias0", torch.float32), (c1, "c1", torch.float32)):
         _check(t, what, dt, (N,), x.device)
+    path = qgemm_path(M, K, N) if path is None else path
     out = torch.empty((M, N), dtype=torch.int8, device=x.device)
     if M == 0:
         return out
@@ -92,7 +118,7 @@ def qgemm(
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), wzp.data_ptr(), d.data_ptr(), bias0.data_ptr(),
                 c1.data_ptr(), out.data_ptr(), M, K, N, float(lo), float(hi), vec_x, vec_out,
-                torch.cuda.current_stream().cuda_stream)
+                PATHS.index(path), torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm")
     LAUNCHES["qgemm"] += 1
     return out

@@ -34,6 +34,7 @@ from microflow_tpu_torch.kernels import (
 )
 from microflow_tpu_torch.kernels import megakernel as tmega
 from microflow_tpu_torch.kernels.megakernel import hybrid_split_index
+from microflow_tpu_torch.kernels.qgemm import qgemm_path
 from microflow_tpu_torch.models import GOLDENS, model_path
 
 F32 = np.float32
@@ -90,8 +91,11 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(5, 37, 11), (1000, 1, 16), (513, 130, 129), (64, 4000, 4)])
-def test_qgemm_kernel_matches_plain(cuda, M, K, N):
+@pytest.mark.parametrize("M,K,N,path", [(5, 37, 11, "dp4a"), (1000, 1, 16, "dp4a"),
+                                        (513, 130, 129, "mma"), (64, 4000, 4, "mma"),
+                                        (70000, 256, 256, "mma"), (3, 65, 2, "mma")])
+def test_qgemm_kernel_matches_plain(cuda, M, K, N, path):
+    assert qgemm_path(M, K, N) == path
     rng = np.random.default_rng(M + K + N)
     args = [a.to(cuda) for a in torch_args(*gemm_case(rng, M, K, N, rng.integers(-4, 4, N), 5))]
     for act in TAct:

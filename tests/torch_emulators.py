@@ -15,11 +15,19 @@ input row) and that every output is written once.  The tests hold them
 exactly against the JAX package's ``conv_2d_accumulate`` and
 ``depthwise_conv_2d_accumulate``.  ``fixed_epilogue`` replays the
 fixed-point epilogue (``requant="fixed"``) those paths apply to their
-accumulators, from the same plan bytes.
+accumulators, from the same plan bytes.  ``qgemm_mma`` replays the per-op
+GEMM's tensor-core path (``csrc/qgemm.cu``), which shares ``mma.sync`` and
+the A fragment order with ``op_pw_mma``, end to end: its in-block fragment
+build, B reads, row sums, epilogue and stores.
 """
+
+import os
+import re
 
 import numpy as np
 
+from microflow_tpu_torch.core.numerics import np_epilogue, np_round_away
+from microflow_tpu_torch.kernels import build
 from microflow_tpu_torch.kernels import flatpack as tflat
 
 LANE = np.arange(32)
@@ -317,3 +325,198 @@ def fixed_epilogue(row, buf, acc: np.ndarray) -> np.ndarray:
     p = (q.astype(np.float32) * m).astype(np.float32)
     t = (p + np.where(p >= 0, np.float32(0.5), np.float32(-0.5))).astype(np.float32)
     return np.trunc(np.minimum(np.maximum(t, lo), hi)).astype(np.int64) + zp
+
+
+# --- qgemm's tensor-core path (csrc/qgemm.cu, qgemm_mma) ----------------------
+
+def qgemm_constant(name: str) -> int:
+    """A ``constexpr int`` of ``csrc/qgemm.cu``, read from the source."""
+    with open(os.path.join(build.CSRC, "qgemm.cu")) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);", f.read()).group(1))
+
+
+MMA_TILES = qgemm_constant("kTiles")  # tiles of 8 rows a warp's work item
+ITEM_ROWS = 8 * MMA_TILES
+MAX_MTILES = qgemm_constant("kMaxTiles")  # m-tiles of 16 channels a block
+MMA_WARPS = qgemm_constant("kThreads") // 32
+MAX_FRAG_BYTES = qgemm_constant("kMaxFragBytes")
+MAX_BLOCKS = qgemm_constant("kMaxBlocks")
+ONES = np.uint64(0x01010101)
+
+
+def mma_geometry(M: int, K: int, N: int) -> dict:
+    """``launch_mma``'s launch: m-tiles a block (``mt``), column chunks
+    (grid x), work items, items a block (``ipb``) and blocks along M."""
+    units = -(-K // 32)
+    mt = min(-(-N // 16), MAX_MTILES)
+    while mt > 1 and mt * units * 512 > MAX_FRAG_BYTES:
+        mt -= 1
+    chunks = -(-N // (16 * mt))
+    items = -(-M // ITEM_ROWS)
+    by = min(-(-items // MMA_WARPS), max(MAX_BLOCKS // chunks, 1))
+    ipb = -(-(-(-items // by)) // MMA_WARPS) * MMA_WARPS
+    return dict(units=units, mt=mt, chunks=chunks, items=items, ipb=ipb,
+                by=-(-items // ipb), smem=mt * (units * 512 + 16 * 16))
+
+
+def transpose4(t: list) -> list:
+    """The kernel's ``transpose4`` (``csrc/mma_s8.cuh``) on uint32 arrays."""
+    ab_lo, ab_hi = byte_perm(t[0], t[1], 0x5140), byte_perm(t[0], t[1], 0x7362)
+    cd_lo, cd_hi = byte_perm(t[2], t[3], 0x5140), byte_perm(t[2], t[3], 0x7362)
+    return [byte_perm(ab_lo, cd_lo, 0x5410), byte_perm(ab_lo, cd_lo, 0x7632),
+            byte_perm(ab_hi, cd_hi, 0x5410), byte_perm(ab_hi, cd_hi, 0x7632)]
+
+
+def mma_fragment_build(w: np.ndarray, n0: int, mt: int) -> np.ndarray:
+    """The block's in-kernel build of its A fragments from int8 ``w [K, N]``
+    for output channels ``n0 .. n0 + 16*mt - 1``: every thread-iteration
+    ``e`` reads rows c..c+3 at columns n..n+3, transposes the 4x4 bytes and
+    stores each column's word at its lane and register.  Returns the int8
+    bytes ``[mt, units, 32 lanes, 16]``; asserts every word is stored once."""
+    K, N = w.shape
+    units, quads = -(-K // 32), 4 * mt
+    e = np.arange(units * 8 * quads)
+    nq, c = e % quads, 4 * (e // quads)
+    n = n0 + 4 * nq
+    wb = w.view(np.uint8).astype(np.uint64)
+    rows = []
+    for r in range(4):
+        v = np.zeros(len(e), np.uint64)
+        for b in range(4):
+            ok = (c + r < K) & (n + b < N)
+            v |= np.where(ok, wb[np.minimum(c + r, K - 1), np.minimum(n + b, N - 1)], 0) << \
+                np.uint64(8 * b)
+        rows.append(v)
+    cols = transpose4(rows)
+    kb = c & ~63
+    off = c - kb
+    pair = K - kb > 32
+    unit = (kb >> 5) + np.where(pair, (off >> 3) & 1, 0)
+    lane_t = np.where(pair, off >> 4, off >> 3)
+    half = (off >> 2) & 1
+    fw = np.zeros(mt * units * 32 * 4, np.uint32)
+    stored = np.zeros(len(fw), np.int64)
+    for b in range(4):
+        r = 4 * nq + b
+        idx = (((r >> 4) * units + unit) * 32 + 4 * (r & 7) + lane_t) * 4 + 2 * half + ((r >> 3) & 1)
+        fw[idx] = cols[b]
+        np.add.at(stored, idx, 1)
+    assert (stored == 1).all()
+    return fw.view(np.int8).reshape(mt, units, 32, 16)
+
+
+def mma_load_b(xb: np.ndarray, rows: np.ndarray, ok: np.ndarray, kb: int, K: int,
+               vec: int) -> np.ndarray:
+    """``load_b<vec>`` for one tile: the uint32 B words ``[32 lanes, 4]`` of
+    channels kb.. of row ``rows`` (lane 4g + t reads row g's); 0 past K
+    and for absent rows (``ok`` False).  Asserts what each vector load
+    assumes."""
+    pair = K - kb > 32
+    nw = 4 if pair else 2
+    c = kb + (16 if pair else 8) * T
+    live = ok & (c < K)
+    if vec == 2:  # one 16- or 8-byte load, aligned, wholly inside the row
+        assert ((rows * K + c)[live] % (4 * nw) == 0).all() and (c[live] + 4 * nw <= K).all()
+    words = np.zeros((32, 4), np.uint64)
+    for i in range(nw):
+        if vec == 1:  # whole aligned words
+            assert ((rows * K + c + 4 * i)[live & (c + 4 * i < K)] % 4 == 0).all()
+            assert (c + 4 * i + 4 <= K)[live & (c + 4 * i < K)].all()
+        for b in range(4):
+            ch = c + 4 * i + b
+            read = live & (ch < K)
+            words[:, i] |= np.where(read, xb[np.where(read, rows * K + ch, 0)], 0) << \
+                np.uint64(8 * b)
+    return words
+
+
+def word_bytes(words: np.ndarray) -> np.ndarray:
+    """uint32 words ``[32, n]`` as their signed bytes ``[32, 4n]``."""
+    return signed_bytes(words).reshape(32, -1)
+
+
+def qgemm_mma(x, w, wzp, d, bias0, c1, lo: int, hi: int, vec: int = 2,
+              vec_out: bool = True) -> np.ndarray:
+    """int8 ``[M, N]`` by ``qgemm_mma``'s steps: per column chunk the
+    fragment build, per block and warp its work items, per tile the B
+    reads (with the K permutation), ``mma.sync`` by PTX's fragment tables
+    for every live m-tile, the row sums by ``__dp4a`` against ones and the
+    quad and pair shuffles, the epilogue, and the stores (the 4x4 byte
+    transpose over lanes where ``vec_out``, else byte stores).  Asserts
+    every output is stored once."""
+    M, K = x.shape
+    N = w.shape[1]
+    geo = mma_geometry(M, K, N)
+    mt = geo["mt"]
+    xb = x.view(np.uint8).reshape(-1).astype(np.uint64)
+    out = np.zeros((M, N), np.int64)
+    stored = np.zeros((M, N), np.int64)
+    lo32, hi32 = np.float32(lo), np.float32(hi)
+
+    def requant(acc, rs, z, dd, b0, cc):
+        q = acc - rs * z + dd
+        assert (np.abs(q) < 2**31).all()
+        y, _ = np_epilogue(cc, q.astype(np.float32), b0)
+        return (np.clip(np_round_away(y), lo32, hi32).astype(np.int64) & 0xFF).astype(np.uint64)
+
+    for chunk in range(geo["chunks"]):
+        n0 = chunk * 16 * mt
+        live = min(mt, -(-(N - n0) // 16))
+        frag = mma_fragment_build(w, n0, mt).astype(np.int64)
+        ch = n0 + np.arange(16 * mt)
+        consts = [np.where(ch < N, a[np.minimum(ch, N - 1)], 0) for a in (wzp, d, bias0, c1)]
+        for blk in range(geo["by"]):
+            first = blk * geo["ipb"]
+            last = min(first + geo["ipb"], geo["items"])
+            for warp in range(MMA_WARPS):
+                for item in range(first + warp, last, MMA_WARPS):
+                    p0 = item * ITEM_ROWS
+                    for j in range(MMA_TILES):
+                        rows = p0 + 8 * j + G
+                        ok = rows < M
+                        acc = np.zeros((live, 32, 4), np.int64)
+                        rs = np.zeros(32, np.int64)
+                        for kb in range(0, K, 64):
+                            cur = mma_load_b(xb, rows, ok, kb, K, vec)
+                            for i in range(4):
+                                rs = dp4a(cur[:, i], ONES, rs)
+                            for m in range(live):
+                                mma(acc[m], frag[m, kb // 32], word_bytes(cur[:, :2]))
+                                if K - kb > 32:
+                                    mma(acc[m], frag[m, kb // 32 + 1], word_bytes(cur[:, 2:]))
+                        r = rs + rs[LANE ^ 1]
+                        r = r + r[LANE ^ 2]
+                        r0, r1 = r[8 * T], r[8 * T + 4]
+                        p = p0 + 8 * j + 2 * T
+                        for m in range(live):
+                            nm = n0 + 16 * m
+                            na, nb = nm + G, nm + G + 8
+                            ka = [c[16 * m + G] for c in consts]
+                            kb_ = [c[16 * m + G + 8] for c in consts]
+                            v = [requant(acc[m][:, 0], r0, *ka), requant(acc[m][:, 1], r1, *ka),
+                                 requant(acc[m][:, 2], r0, *kb_), requant(acc[m][:, 3], r1, *kb_)]
+                            if vec_out:
+                                i = G & 3
+                                word = v[0] | v[1] << np.uint64(8) | v[2] << np.uint64(16) | \
+                                    v[3] << np.uint64(24)
+                                y = word[LANE ^ 8]
+                                u = np.where(i & 2, byte_perm(y, word, 0x7632),
+                                             byte_perm(word, y, 0x5410))
+                                y = u[LANE ^ 4]
+                                word = np.where(i & 1, byte_perm(u, y, 0x3715),
+                                                byte_perm(u, y, 0x6240))
+                                pr, n = p + (i & 1), nm + 4 * (G >> 2) + 8 * (i >> 1)
+                                keep = (pr < M) & (n < N)
+                                assert (n[keep] % 4 == 0).all() and (n[keep] + 4 <= N).all()
+                                vals = signed_bytes(word)
+                                for b in range(4):
+                                    out[pr[keep], n[keep] + b] = vals[keep, b]
+                                    np.add.at(stored, (pr[keep], n[keep] + b), 1)
+                            else:
+                                for pr, n, val in ((p, na, v[0]), (p + 1, na, v[1]),
+                                                   (p, nb, v[2]), (p + 1, nb, v[3])):
+                                    keep = (pr < M) & (n < N)
+                                    out[pr[keep], n[keep]] = signed_bytes(val)[keep, 0]
+                                    np.add.at(stored, (pr[keep], n[keep]), 1)
+    assert (stored == 1).all()
+    return out.astype(np.int8)
