@@ -12,14 +12,17 @@ line; any failure raises and the script exits non-zero:
    in parallel; ``ptxas`` registers, stack and spills of every entry
    function, and a check that the exact2 flat kernel, the megakernel and
    the packed kernel keep 64 registers, no stack and no spills, and that
-   ``qgemm``'s tensor-core instantiations have no stack and no spills.
+   ``qgemm``'s tensor-core (``qgemm_mma``) and narrow-path
+   (``qgemm_rows``) instantiations have no stack and no spills.
 3. kernels: each kernel held bit-equal against its plain torch version:
    ``qgemm``/``qdwconv`` at every layer shape of sine, speech and
    person_detect (batch 64) and on edge cases (``qgemm``'s: the epilogue
-   triples on both of its paths, ``__dp4a`` at K = 4 and the tensor cores
-   at K = 128, and every (M, K, N) of ``QGEMM_MMA_EDGES`` and X at 1 and 4
-   bytes past an aligned address on the tensor cores, each check naming
-   its path, counted per path on the phase's line; ``qdwconv``'s, on its
+   triples (ties made from (q, bias0, c1), FMA-sensitive columns, q around
+   2**22 and past 2**24) on the narrow path at K = 4, 8, 16 and 32 and on
+   the tensor cores at K = 128, every (M, K, N) of ``QGEMM_ROWS_EDGES`` and
+   of ``QGEMM_MMA_EDGES``, and X at 1 and 4 bytes past an aligned address
+   on both paths, each check naming its path, counted per path on the
+   phase's line; ``qdwconv``'s, on its
    unpadded input, at the edges of its 3x3 tile paths and of its general
    path: ``DW_EDGE_CASES``); ``flatpack`` on
    person_detect (whole, and its first 2 and 12 layers), speech and sine at
@@ -58,7 +61,8 @@ line; any failure raises and the script exits non-zero:
    away there), on +-k.5 and the ulps around them, past both rails, and on
    multiply-add triples that an FMA would round otherwise.  Then each is
    timed beside its plain version and its bound: the per-op kernels at
-   person_detect's shapes at batch 8192 (``qgemm`` also beside
+   person_detect's shapes at batch 8192 and ``qgemm`` at sine's three
+   shapes at batch 1,048,576 (``qgemm`` also beside
    ``torch._int_mm``, both also on the device alone, replayed from a CUDA
    graph, and on its other path, each shape naming the path the rule
    gives it; ``qdwconv`` beside cuDNN's depthwise ``conv2d`` in
@@ -207,6 +211,13 @@ ACTS = (FusedActivation.NONE, FusedActivation.RELU, FusedActivation.RELU6)
 # qgemm's tensor-core path: every (M, K, N) of these is checked
 QGEMM_MMA_EDGES = {"M": (1, 5, 513, 70000), "K": (64, 65, 100, 130, 256, 4000),
                    "N": (2, 4, 11, 16, 129, 250, 256)}
+# qgemm's narrow path (K < 64, qgemm_rows): K on and past multiples of 4,
+# 8, 16 and 32, N below 16 and on and past multiples of 16 and of the
+# 64-column chunk, M not a multiple of a work item
+QGEMM_ROWS_EDGES = {"M": (1, 37, 513, 70000), "K": (1, 3, 4, 8, 9, 16, 31, 32, 33, 63),
+                    "N": (1, 2, 15, 16, 32, 64, 65)}
+# sine's three qgemm shapes, one row a sample: (K, N)
+SINE_QGEMM = ((1, 16), (16, 16), (16, 1))
 DW_PATHS = {PATH_GENERAL: "general", PATH_S1: "3x3/s1", PATH_S2: "3x3/s2", PATH_STEM: "stem"}
 # qdwconv edge cases: (B, H, W, input channels, C, KH, KW, row and column
 # strides, padding, centred weights fit int8, in_zp, bytes the input lies
@@ -373,6 +384,17 @@ def epilogue_triples(rng, n: int):
         q.append(qq)
         b0.append(bb)
         c1.append(0.37)
+    # y = +-0.5 exactly where f32(q) is right, for q around 2**22 and past
+    # 2**24 (where f32(q) rounds)
+    for qq in (2**22 - 1, 2**22, 2**22 + 1, 2**24 + 1, 2**24 + 3, 2**31 - 1):
+        for sg in (1, -1):
+            t = np.float32(sg * qq) * np.float32(2.0**-20)
+            for h in (np.float32(0.5), np.float32(-0.5)):
+                b = np.float32(h - t)
+                assert np.float32(b + t) == h
+                q.append(sg * qq)
+                b0.append(b)
+                c1.append(2.0**-20)
     m = 4_000_000
     rq = rng.integers(-(2**20), 2**20, m)
     rc = rng.uniform(1e-4, 0.05, m).astype(np.float32)
@@ -400,11 +422,12 @@ def edge_cases(dev, rng) -> dict:
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
     i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
 
-    # epilogue: X = 0 makes q = d[n], so each column carries one triple;
-    # at K = 4 on the __dp4a path, at K = 128 on the tensor cores
+    # epilogue: X = 0 makes q = d[n], so each column carries one triple; at
+    # K = 4, 8, 16 and 32 on the narrow path (one, two, four and eight words
+    # a row), at K = 128 on the tensor cores
     q, b0, c1, n_fma = epilogue_triples(rng, 1024)
     n = len(q)
-    for k in (4, 128):
+    for k in (4, 8, 16, 32, 128):
         for act in ACTS:
             kw = dict(activation=act, out_scale=0.05, out_zp=-3)
             check("qgemm", (torch.zeros((5, k), dtype=torch.int8, device=dev),
@@ -435,9 +458,26 @@ def edge_cases(dev, rng) -> dict:
                               out_zp=int(rng.integers(-20, 20)))
                     check("qgemm", args, kw, f"M{M} K{K} N{N} {act.value}")
             del x
+    # the narrow path at its edges: K on and past multiples of 4, 8, 16 and
+    # 32 (byte, word and vector reads), N below 16 and past the 64-column
+    # chunk, M not a multiple of a work item, every activation
+    for M in QGEMM_ROWS_EDGES["M"]:
+        for K in QGEMM_ROWS_EDGES["K"]:
+            x = i8((M, K))
+            for N in QGEMM_ROWS_EDGES["N"]:
+                args = (x, i8((K, N)), i32(rng.integers(-9, 9, N)),
+                        i32(rng.integers(-5000, 5000, N)), f32(rng.normal(0, 20, N)),
+                        f32(rng.uniform(0.5, 2.0, N) * 20 / (np.sqrt(K) * 5500)))
+                for act in ACTS:
+                    kw = dict(activation=act, out_scale=float(rng.uniform(0.01, 0.1)),
+                              out_zp=int(rng.integers(-20, 20)))
+                    check("qgemm", args, kw, f"M{M} K{K} N{N} {act.value}")
+            del x
     # X at 1 and 4 bytes past an aligned address (the byte and word reads)
     for (M, K, N, offset) in ((513, 128, 129, 1), (70000, 256, 256, 1), (513, 128, 64, 4),
-                              (1000, 100, 16, 1), (77, 64, 8, 4)):
+                              (1000, 100, 16, 1), (77, 64, 8, 4), (513, 8, 16, 1),
+                              (70000, 16, 32, 4), (1000, 32, 64, 1), (77, 32, 65, 4),
+                              (513, 16, 1, 1), (300, 4, 16, 1), (300, 4, 16, 4)):
         buf = torch.empty(M * K + offset, dtype=torch.int8, device=dev)
         x = buf[offset:].view(M, K)
         x.copy_(i8((M, K)))
@@ -1216,6 +1256,8 @@ def time_kernels(calls) -> dict:
     depthwise ``conv2d``, first checked equal to the integer accumulators."""
     res = {}
     for name, lst in calls.items():
+        if not lst:
+            continue
         rows = []
         for args, kw in lst:
             kern = getattr(kernels, name)
@@ -1374,9 +1416,10 @@ def main() -> int:
         (fn,) = [u for f, u in usage.items() if key in f]
         if fn["registers"] > 64 or fn["stack"] or fn["spill_stores"] or fn["spill_loads"]:
             raise AssertionError(f"{key}: {fn}")
-    # qgemm's tensor-core instantiations: no stack, no spills
+    # qgemm's tensor-core and narrow-path instantiations: no stack, no spills
     for f, fn in usage.items():
-        if "qgemm_mma" in f and (fn["stack"] or fn["spill_stores"] or fn["spill_loads"]):
+        if ("qgemm_mma" in f or "qgemm_rows" in f) and (fn["stack"] or fn["spill_stores"]
+                                                        or fn["spill_loads"]):
             raise AssertionError(f"{f}: {fn}")
 
     # 3. kernels against their plain versions
@@ -1418,6 +1461,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False  # the depthwise yardstick in exact f32
     timing = time_kernels(rec.calls)
     del rec
+    torch.cuda.empty_cache()
+    # sine's three qgemm shapes, at the batch colfc is timed at
+    sine = compile_tflite(model_path("sine"), name="sine", backend="pallas")
+    with Recorder("capture") as rec:
+        sine.predict_inner(random_input(sine, 1 << 20, rng))
+    if [(a[0].shape[1], a[1].shape[1]) for a, _ in rec.calls["qgemm"]] != list(SINE_QGEMM):
+        raise AssertionError("sine's qgemm shapes are not SINE_QGEMM")
+    timing["qgemm_sine"] = time_kernels(rec.calls)["qgemm"]
+    del rec, sine
     torch.cuda.empty_cache()
     timing_whole = time_whole_network(dev, rng)
     torch.cuda.empty_cache()

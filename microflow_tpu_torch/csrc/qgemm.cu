@@ -18,13 +18,29 @@
 // by a rule on shape alone (kernels/qgemm.py::qgemm_path, which the wrapper
 // passes in as `path`):
 //
-// - "dp4a" (qgemm_kernel, K < 64): X is read once through shared memory in
-//   coalesced words, all accumulators stay in registers, and the epilogue
-//   is applied before a single int8 store: no i32 tensor touches device
-//   memory.  The tile adapts to narrow N (BN = 16, 32 or 64) and to short K
-//   (BK = 4 .. 32 bytes) so little of the block's work is padding.
-//   Products use __dp4a (four int8 products and a sum in one instruction);
-//   the row sums ride along as dp4a against ones.
+// - "dp4a" (qgemm_rows, K < 64): a persistent grid, as many blocks as the
+//   SMs hold (occupancy from the runtime), each owning a chunk of up to
+//   kChunk output columns.  A block stages its chunk of W (K x 64 bytes at
+//   most) and the chunk's epilogue constants in shared memory once, then
+//   walks work items of rows with a grid stride.  A group of 1, 2 or 4
+//   lanes (N <= 16, <= 32, more) owns each row, a lane kCols of its
+//   columns: the lane reads the row's K bytes straight from device memory
+//   into registers (one 8-byte load at K = 8, one 16-byte load at K = 16,
+//   two at K = 32; words or bytes where K or X is not aligned), with no
+//   shared-memory stage and no barrier in the row loop, and the next work
+//   item's rows are loaded before the current item's products, epilogue
+//   and stores.  Products and row sums by __dp4a, against W words read
+//   from shared memory four columns at a time (the same address for every
+//   lane of a warp where one lane owns a row); each W word and constant
+//   read serves the item's rows.  The epilogue clamps y before rounding
+//   and rounds by a truncation (round_byte below): two conversions an
+//   output, not three, and the same bits.  A row's outputs leave in one
+//   16-byte store a lane where N % 16 == 0, else in words or bytes.
+//   kCols, kRows, kRowsWide and kRowMinBlocks were chosen by
+//   scripts/torch_qgemm_sweep.py --narrow (PERF.md).
+//   At K >= 64, "dp4a" (forced for measurement, or past kMmaMaxK) takes
+//   the shared-memory tiles of qgemm_kernel: X staged 32 bytes of K at a
+//   time, all accumulators in registers, the epilogue before one store.
 // - "mma" (qgemm_mma, 64 <= K <= kMmaMaxK): the products on the int8
 //   tensor cores, mma.sync m16n8k32 (mma_s8.cuh), in op_pw_mma's
 //   orientation (segment_ops.cuh): output channels on the MMA's M
@@ -61,12 +77,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "epilogue.cuh"
 #include "mma_s8.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 template <int BN, int BK>
 __global__ void __launch_bounds__(kThreads) qgemm_kernel(
@@ -180,25 +199,290 @@ __global__ void __launch_bounds__(kThreads) qgemm_kernel(
   }
 }
 
-template <int BN, int BK>
-cudaError_t launch(const int8_t* x, const int8_t* w, const int32_t* wzp, const int32_t* d,
-                   const float* bias0, const float* c1, int8_t* out, long long M, int K, int N,
-                   float lo, float hi, int vec_x, int vec_out, cudaStream_t stream) {
+// The launch of qgemm_kernel, for "dp4a" at K >= 64: the tile's columns
+// adapt to N, its K slice is 32 bytes.
+template <int BN>
+cudaError_t launch_tiles(const int8_t* x, const int8_t* w, const int32_t* wzp, const int32_t* d,
+                         const float* bias0, const float* c1, int8_t* out, long long M, int K,
+                         int N, float lo, float hi, int vec_x, int vec_out, cudaStream_t stream) {
   constexpr int BM = (kThreads / (BN / 4)) * 4;
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  qgemm_kernel<BN, BK><<<grid, kThreads, 0, stream>>>(x, w, wzp, d, bias0, c1, out, M, K, N, lo,
+  qgemm_kernel<BN, 32><<<grid, kThreads, 0, stream>>>(x, w, wzp, d, bias0, c1, out, M, K, N, lo,
                                                       hi, vec_x, vec_out);
   return cudaGetLastError();
 }
 
-template <int BN>
-cudaError_t launch_bk(const int8_t* x, const int8_t* w, const int32_t* wzp, const int32_t* d,
-                      const float* bias0, const float* c1, int8_t* out, long long M, int K, int N,
-                      float lo, float hi, int vec_x, int vec_out, cudaStream_t s) {
-  if (K <= 4) return launch<BN, 4>(x, w, wzp, d, bias0, c1, out, M, K, N, lo, hi, vec_x, vec_out, s);
-  if (K <= 8) return launch<BN, 8>(x, w, wzp, d, bias0, c1, out, M, K, N, lo, hi, vec_x, vec_out, s);
-  if (K <= 16) return launch<BN, 16>(x, w, wzp, d, bias0, c1, out, M, K, N, lo, hi, vec_x, vec_out, s);
-  return launch<BN, 32>(x, w, wzp, d, bias0, c1, out, M, K, N, lo, hi, vec_x, vec_out, s);
+// --- the narrow path (K < 64) ------------------------------------------------
+
+constexpr int kCols = 16;         // output columns a lane
+constexpr int kChunk = 64;        // output columns a block: up to kChunk / kCols lanes a row
+constexpr int kStride = 72;       // words a staged row: kChunk, and 4 after every 32 columns
+constexpr int kRows = 3;          // rows a thread per work item, K <= 8
+constexpr int kRowsWide = 2;      // rows a thread per work item, 8 < K <= 32 (1 above)
+constexpr int kRowMinBlocks = 3;  // blocks an SM (__launch_bounds__)
+static_assert(kStride == kChunk + kChunk / 8 && 32 % kCols == 0, "the staged row's padding");
+
+__host__ __device__ constexpr int rows_per_thread(int kw) {
+  return kw <= 2 ? kRows : kw <= 8 ? kRowsWide : 1;
+}
+
+// The rows p, p + tile, ... (R of them) of X into registers, KW words each,
+// zero past K and for rows past M.  mode 2: K == 4 * KW and X aligned to
+// min(16, 4 * KW) bytes (vector loads of up to 16 bytes); 1: K % 4 == 0
+// and X 4-byte aligned (words); 0: bytes.
+template <int KW, int R>
+__device__ __forceinline__ void load_rows(const int8_t* __restrict__ x, long long p, int tile,
+                                          long long M, int K, int mode, uint32_t (&v)[R][KW]) {
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+#pragma unroll
+    for (int i = 0; i < KW; ++i) v[j][i] = 0;
+    const long long row = p + (long long)j * tile;
+    if (row >= M) continue;
+    const int8_t* r = x + row * K;
+    if (mode == 2) {
+      if constexpr (KW == 1) {
+        v[j][0] = __ldg(reinterpret_cast<const uint32_t*>(r));
+      } else if constexpr (KW == 2) {
+        const uint2 u = __ldg(reinterpret_cast<const uint2*>(r));
+        v[j][0] = u.x, v[j][1] = u.y;
+      } else {
+#pragma unroll
+        for (int i = 0; i < KW; i += 4) {
+          const uint4 u = __ldg(reinterpret_cast<const uint4*>(r) + i / 4);
+          v[j][i] = u.x, v[j][i + 1] = u.y, v[j][i + 2] = u.z, v[j][i + 3] = u.w;
+        }
+      }
+    } else if (mode == 1) {
+#pragma unroll
+      for (int i = 0; i < KW; ++i)
+        if (4 * i < K) v[j][i] = __ldg(reinterpret_cast<const uint32_t*>(r) + i);
+    } else {
+#pragma unroll
+      for (int i = 0; i < KW; ++i)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if (4 * i + b < K) v[j][i] |= (uint32_t)(uint8_t)__ldg(r + 4 * i + b) << (8 * b);
+    }
+  }
+}
+
+// The epilogue with two conversions, not requant_byte's three: y =
+// bias0 + c1 * f32(q) (the multiply, then the add) clamped to [lo, hi]
+// first (lo and hi are integers, so rounding the clamped y gives the
+// clamped rounding), then roundf(y) as trunc(y + copysign(0.5 - 2^-25,
+// y)), exact for every |y| <= 129 (0.5 itself would round y = 0.5 - 2^-25
+// up to 1).  The low byte of the result is the output.
+__device__ __forceinline__ uint32_t round_byte(int q, float b0, float c1, float lo, float hi) {
+  const float y = fminf(fmaxf(mf_affine(b0, c1, q), lo), hi);
+  return (uint32_t)__float2int_rz(__fadd_rn(y, copysignf(__int_as_float(0x3EFFFFFF), y)));
+}
+
+// One launch serves output columns n0 = blockIdx.y * kChunk .. + kChunk - 1
+// and, with a grid stride, work items of R * tile rows (tile = 32 / L
+// rows, L = 1 << lanes_log2 lanes a row): warp w of block b takes items
+// b * kWarps + w, then every gridDim.x * kWarps-th.  Lane g * L + s
+// takes rows item * R * tile + g + tile * j (j < R) and columns n0 +
+// kCols * s .. + kCols - 1.  Shared memory, staged once a block: rows 0 ..
+// KW-1 hold the W words (column n's bytes k = 4i .. 4i+3 in row i), rows
+// KW .. KW+3 -wzp, d, bias0 and c1; column c of the chunk sits at word
+// c + 4 * (c / 32), so the lanes of a warp that read different columns hit
+// different banks.  Columns past N are 0.
+template <int KW>
+__global__ void __launch_bounds__(kThreads, kRowMinBlocks) qgemm_rows(
+    const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+    const int32_t* __restrict__ wzp, const int32_t* __restrict__ d,
+    const float* __restrict__ bias0, const float* __restrict__ c1,
+    int8_t* __restrict__ out, long long M, int K, int N, float lo, float hi, int lanes_log2,
+    int items, int x_mode, int out_mode) {
+  constexpr int R = rows_per_thread(KW);
+  constexpr int G = kCols / 4;  // column groups of four a lane
+  __shared__ __align__(16) uint32_t sm[(KW + 4) * kStride];
+  const int n0 = blockIdx.y * kChunk;
+  for (int e = threadIdx.x; e < (KW + 4) * kChunk; e += kThreads) {
+    const int i = e / kChunk, c = e % kChunk, n = n0 + c;
+    uint32_t v = 0;
+    if (n < N) {
+      if (i < KW) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if (4 * i + b < K)
+            v |= (uint32_t)(uint8_t)__ldg(w + (long long)(4 * i + b) * N + n) << (8 * b);
+      } else if (i == KW) {
+        v = 0u - (uint32_t)__ldg(wzp + n);
+      } else if (i == KW + 1) {
+        v = (uint32_t)__ldg(d + n);
+      } else {
+        v = __float_as_uint(__ldg((i == KW + 2 ? bias0 : c1) + n));
+      }
+    }
+    sm[i * kStride + c + 4 * (c >> 5)] = v;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, L = 1 << lanes_log2, tile = 32 >> lanes_log2;
+  const int s = lane & (L - 1), g = lane >> lanes_log2, cb = kCols * s;
+  const int live = min(kCols, N - n0 - cb);  // the lane's columns below N
+  const uint4* col = reinterpret_cast<const uint4*>(sm + cb + 4 * (cb >> 5));
+  constexpr int kRowQ = kStride / 4;  // uint4 a staged row
+  const int step = gridDim.x * kWarps, rows_item = R * tile;
+  int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  uint32_t cur[R][KW];
+  if (item < items) load_rows<KW, R>(x, (long long)item * rows_item + g, tile, M, K, x_mode, cur);
+  for (; item < items; item += step) {
+    const long long p = (long long)item * rows_item + g;
+    uint32_t nxt[R][KW];
+    const bool more = item + step < items;
+    if (more) load_rows<KW, R>(x, p + (long long)step * rows_item, tile, M, K, x_mode, nxt);
+
+    // Each group of four columns is finished (products, then the epilogue
+    // into one word of four bytes a row) before the next, so only 4 * R
+    // accumulators are live; every group is computed (past N from zeros),
+    // so no branch parts them.  q = acc + rs * -wzp.
+    int rs[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      rs[j] = 0;
+#pragma unroll
+      for (int i = 0; i < KW; ++i) rs[j] = __dp4a((int)cur[j][i], 0x01010101, rs[j]);
+    }
+    uint32_t word[R][G];
+#pragma unroll
+    for (int c = 0; c < G; ++c) {
+      const uint4 dv = col[(KW + 1) * kRowQ + c];
+      int acc[R][4];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        acc[j][0] = (int)dv.x, acc[j][1] = (int)dv.y, acc[j][2] = (int)dv.z, acc[j][3] = (int)dv.w;
+      }
+#pragma unroll
+      for (int i = 0; i < KW; ++i) {
+        const uint4 wv = col[i * kRowQ + c];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int xv = (int)cur[j][i];
+          acc[j][0] = __dp4a(xv, (int)wv.x, acc[j][0]);
+          acc[j][1] = __dp4a(xv, (int)wv.y, acc[j][1]);
+          acc[j][2] = __dp4a(xv, (int)wv.z, acc[j][2]);
+          acc[j][3] = __dp4a(xv, (int)wv.w, acc[j][3]);
+        }
+      }
+      const uint4 z = col[KW * kRowQ + c], b0 = col[(KW + 2) * kRowQ + c],
+                  cc = col[(KW + 3) * kRowQ + c];
+      const int zs[4] = {(int)z.x, (int)z.y, (int)z.z, (int)z.w};
+      const float bs[4] = {__uint_as_float(b0.x), __uint_as_float(b0.y), __uint_as_float(b0.z),
+                           __uint_as_float(b0.w)};
+      const float cs[4] = {__uint_as_float(cc.x), __uint_as_float(cc.y), __uint_as_float(cc.z),
+                           __uint_as_float(cc.w)};
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        uint32_t v[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          v[b] = round_byte(acc[j][b] + rs[j] * zs[b], bs[b], cs[b], lo, hi);
+        word[j][c] = __byte_perm(__byte_perm(v[0], v[1], 0x0040), __byte_perm(v[2], v[3], 0x0040),
+                                 0x5410);
+      }
+    }
+
+    // Stores: out_mode 2, one kCols-byte store a lane (N % kCols == 0, out
+    // aligned); 1, words (N % 4 == 0, out 4-byte aligned); 0, bytes.
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const long long row = p + (long long)j * tile;
+      if (row >= M || live <= 0) continue;
+      int8_t* o = out + row * N + n0 + cb;
+      if (out_mode == 2) {
+        if constexpr (G == 4)
+          *reinterpret_cast<uint4*>(o) = make_uint4(word[j][0], word[j][1], word[j][2], word[j][3]);
+        else if constexpr (G == 2)
+          *reinterpret_cast<uint2*>(o) = make_uint2(word[j][0], word[j][1]);
+        else
+          *reinterpret_cast<uint32_t*>(o) = word[j][0];
+      } else if (out_mode == 1) {
+#pragma unroll
+        for (int c = 0; c < G; ++c)
+          if (4 * c < live) reinterpret_cast<uint32_t*>(o)[c] = word[j][c];
+      } else {
+#pragma unroll
+        for (int c = 0; c < G; ++c)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (4 * c + b < live) o[4 * c + b] = (int8_t)(word[j][c] >> (8 * b));
+      }
+    }
+    if (more) {
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int i = 0; i < KW; ++i) cur[j][i] = nxt[j][i];
+    }
+  }
+}
+
+// Blocks a launch of `kernel` keeps resident on the current device: its SMs
+// times the blocks an SM holds at kThreads threads (ptxas' registers and
+// the static shared memory decide).  Cached per kernel and device.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int* blocks) {
+  constexpr int kDevices = 16;
+  static std::atomic<int> cache[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && (*blocks = cache[dev].load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  *blocks = sms * per_sm > 0 ? sms * per_sm : 1;
+  if (dev < kDevices) cache[dev].store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
+// The launch of qgemm_rows: KW words of K a row; lanes a row as few as
+// hold a chunk's columns; column chunks on grid y; the resident blocks
+// split over the chunks on grid x, no more than there are warps of items.
+template <int KW>
+cudaError_t launch_rows(const int8_t* x, const int8_t* w, const int32_t* wzp, const int32_t* d,
+                        const float* bias0, const float* c1, int8_t* out, long long M, int K,
+                        int N, float lo, float hi, cudaStream_t s) {
+  constexpr int R = rows_per_thread(KW);
+  const int span = N < kChunk ? N : kChunk;
+  int lanes_log2 = 0;
+  while ((kCols << lanes_log2) < span) ++lanes_log2;
+  const int chunks = (N + kChunk - 1) / kChunk;
+  const long long rows_item = (long long)R * (32 >> lanes_log2);
+  const long long items = (M + rows_item - 1) / rows_item;
+  int blocks = 0;
+  const cudaError_t err = resident_blocks(qgemm_rows<KW>, &blocks);
+  if (err != cudaSuccess) return err;
+  long long bx = blocks / chunks > 0 ? blocks / chunks : 1;
+  const long long need = (items + kWarps - 1) / kWarps;
+  if (bx > need) bx = need;
+  if (items > 0x7fffffff - bx * kWarps) return cudaErrorInvalidValue;  // int item indices
+  const int vec = KW < 4 ? 4 * KW : 16;  // the vector load's bytes
+  const int x_mode = K == 4 * KW && reinterpret_cast<uintptr_t>(x) % vec == 0 ? 2
+                     : K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0 ? 1 : 0;
+  const int out_mode = N % kCols == 0 && reinterpret_cast<uintptr_t>(out) % kCols == 0 ? 2
+                       : N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0 ? 1 : 0;
+  qgemm_rows<KW><<<dim3((unsigned)bx, (unsigned)chunks), kThreads, 0, s>>>(
+      x, w, wzp, d, bias0, c1, out, M, K, N, lo, hi, lanes_log2, (int)items, x_mode, out_mode);
+  return cudaGetLastError();
+}
+
+// The narrow path by K: the smallest KW with 4 * KW >= K.
+template <int KW>
+cudaError_t launch_narrow(const int8_t* x, const int8_t* w, const int32_t* wzp, const int32_t* d,
+                          const float* bias0, const float* c1, int8_t* out, long long M, int K,
+                          int N, float lo, float hi, cudaStream_t s) {
+  if constexpr (KW < 16) {
+    if (K > 4 * KW)
+      return launch_narrow<2 * KW>(x, w, wzp, d, bias0, c1, out, M, K, N, lo, hi, s);
+  }
+  return launch_rows<KW>(x, w, wzp, d, bias0, c1, out, M, K, N, lo, hi, s);
 }
 
 // --- the tensor-core path ----------------------------------------------------
@@ -207,7 +491,6 @@ constexpr int kTiles = 2;             // tiles of 8 rows a warp's work item
 constexpr int kItemRows = 8 * kTiles;  // rows of X a work item
 constexpr int kMaxTiles = 4;          // m-tiles of 16 output channels a block
 constexpr int kMinBlocks = 3;         // blocks an SM (__launch_bounds__)
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxFragBytes = 65536;  // the most A fragment bytes a block stages
 constexpr int kMmaMaxK = 4096;        // one m-tile's 128 units of 512 bytes fill them
 constexpr int kMaxBlocks = 1024;      // blocks, all column chunks together
@@ -480,8 +763,8 @@ cudaError_t launch_mma(const int8_t* x, const int8_t* w, const int32_t* wzp, con
 // Plain C entry point (bound with ctypes).  Returns the CUDA error code of
 // the launch, 0 on success.  vec_x: K % 4 == 0 and x 4-byte aligned.
 // vec_out: N % 4 == 0 and out 4-byte aligned.  path: 0 = "dp4a"
-// (qgemm_kernel), 1 = "mma" (qgemm_mma, K <= kMmaMaxK), as
-// kernels/qgemm.py::qgemm_path chose it.
+// (qgemm_rows for K < 64, qgemm_kernel above), 1 = "mma" (qgemm_mma, K <=
+// kMmaMaxK), as kernels/qgemm.py::qgemm_path chose it.
 extern "C" int mf_qgemm(const void* x, const void* w, const void* wzp, const void* d,
                         const void* bias0, const void* c1, void* out, long long M, int K, int N,
                         float lo, float hi, int vec_x, int vec_out, int path, void* stream) {
@@ -504,11 +787,13 @@ extern "C" int mf_qgemm(const void* x, const void* w, const void* wzp, const voi
       err = launch_mma<1>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, vec_w, vec_out, s);
     else
       err = launch_mma<0>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, vec_w, vec_out, s);
-  } else if (N <= 16)
-    err = launch_bk<16>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, vec_x, vec_out, s);
+  } else if (K < 64)
+    err = launch_narrow<1>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, s);
+  else if (N <= 16)
+    err = launch_tiles<16>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, vec_x, vec_out, s);
   else if (N <= 32)
-    err = launch_bk<32>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, vec_x, vec_out, s);
+    err = launch_tiles<32>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, vec_x, vec_out, s);
   else
-    err = launch_bk<64>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, vec_x, vec_out, s);
+    err = launch_tiles<64>(xp, wp, zp, dp, bp, cp, op, M, K, N, lo, hi, vec_x, vec_out, s);
   return (int)err;
 }

@@ -12,9 +12,12 @@ person_detect's 31 layers -- are exactly this GEMM):
 ``d[n] = K * in_zp * wzp[n] - in_zp * colsum(W)[n]`` folds every
 zero-point correction into one per-column constant.
 
-The kernel has two paths, chosen by ``qgemm_path`` on shape alone: the
-narrow shapes' ``__dp4a`` tiles and the wide shapes' int8 tensor cores
-(``mma.sync``).  Both compute the same bits.
+The kernel has two paths, chosen by ``qgemm_path`` on shape alone:
+``"dp4a"`` (for K < 64 ``qgemm_rows``: a persistent grid whose lanes own
+whole rows, read straight into registers, against W and the epilogue
+constants staged once a block; the shared-memory tiles of ``qgemm_kernel``
+for larger K) and ``"mma"`` (the int8 tensor cores, ``mma.sync``).  Both
+compute the same bits.
 """
 
 from __future__ import annotations
@@ -27,9 +30,11 @@ from . import LAUNCHES, build
 
 
 # The tensor-core path takes K from MMA_MIN_K to MMA_MAX_K (one m-tile's A
-# fragments fill the 64 KB a block stages).  At K = 64 it is 2.6-2.9x the
-# __dp4a tiles on person_detect's shapes; the shapes below keep the
-# __dp4a tiles (PERF.md has both paths' times there).
+# fragments fill the 64 KB a block stages).  Below MMA_MIN_K the narrow
+# path (qgemm_rows) beat it at every shape served there, person_detect's
+# four and sine's three, timed in one call on one card; at K = 64 the
+# tensor cores beat the shared-memory tiles 2.6-2.9x (PERF.md has the
+# times).
 MMA_MIN_K = 64
 MMA_MAX_K = 4096
 PATHS = ("dp4a", "mma")  # the C entry point's path argument is the index
@@ -37,9 +42,10 @@ PATHS = ("dp4a", "mma")  # the C entry point's path argument is the index
 
 def qgemm_path(M: int, K: int, N: int) -> str:
     """The kernel path of an [M, K] x [K, N] product: ``"mma"`` (the int8
-    tensor cores) for ``MMA_MIN_K <= K <= MMA_MAX_K``, else ``"dp4a"``.
-    A rule on shape (K alone), never on data; ``qgemm`` launches the path
-    it names."""
+    tensor cores) for ``MMA_MIN_K <= K <= MMA_MAX_K``, else ``"dp4a"``
+    (``qgemm_rows`` below ``MMA_MIN_K``, the shared-memory tiles past
+    ``MMA_MAX_K``).  A rule on shape (K alone), never on data; ``qgemm``
+    launches the path it names."""
     return "mma" if MMA_MIN_K <= K <= MMA_MAX_K else "dp4a"
 
 

@@ -66,7 +66,7 @@ def main() -> int:
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.device_time_total / 1e3
     per_fwd = {k: v / args.iters for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])}
     ours = {k: v for k, v in per_fwd.items()
-            if any(n in k for n in ("qgemm_kernel", "qdwconv_tile", "qdwconv_general", "flat_kernel",
+            if any(n in k for n in ("qgemm", "qdwconv_tile", "qdwconv_general", "flat_kernel",
                                     "segment_kernel", "packed_kernel"))}
     device_ms = sum(per_fwd.values())
     ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)

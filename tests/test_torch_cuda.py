@@ -92,6 +92,8 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N,path", [(5, 37, 11, "dp4a"), (1000, 1, 16, "dp4a"),
+                                        (70000, 8, 16, "dp4a"), (3001, 16, 32, "dp4a"),
+                                        (1001, 32, 64, "dp4a"), (77, 63, 130, "dp4a"),
                                         (513, 130, 129, "mma"), (64, 4000, 4, "mma"),
                                         (70000, 256, 256, "mma"), (3, 65, 2, "mma")])
 def test_qgemm_kernel_matches_plain(cuda, M, K, N, path):

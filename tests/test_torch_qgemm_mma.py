@@ -128,7 +128,9 @@ def test_geometry_covers_every_item_once_at_edges(K):
 def test_path_rule_on_person_detect():
     """The rule on the 14 shapes person_detect gives ``qgemm`` (captured from
     a forward through ``backend="pallas"``, scaled to batch 8192): the
-    tensor cores from K = 64 up, ``__dp4a`` below."""
+    tensor cores from K = 64 up, the narrow path (``qgemm_rows``) below,
+    where it beat the tensor cores at all four shapes (K = 8, 16, 32, 32)
+    on the same card in the same call (PERF.md)."""
     shapes = []
     orig = tqgemm.qgemm
 
@@ -148,10 +150,14 @@ def test_path_rule_on_person_detect():
     assert [tqgemm.qgemm_path(*s) for s in shapes] == ["dp4a"] * 4 + ["mma"] * 10
 
 
-@pytest.mark.parametrize("K,path", [(1, "dp4a"), (37, "dp4a"), (63, "dp4a"), (64, "mma"),
-                                    (65, "mma"), (130, "mma"), (4000, "mma"), (4096, "mma"),
-                                    (4097, "dp4a"), (20000, "dp4a")])
+@pytest.mark.parametrize("K,path", [(1, "dp4a"), (8, "dp4a"), (16, "dp4a"), (32, "dp4a"),
+                                    (37, "dp4a"), (63, "dp4a"), (64, "mma"), (65, "mma"),
+                                    (130, "mma"), (4000, "mma"), (4096, "mma"), (4097, "dp4a"),
+                                    (20000, "dp4a")])
 def test_path_rule_on_edges(K, path):
+    """K alone decides: the narrow path below 64 (sine's K = 1 and 16 and
+    person_detect's 8, 16 and 32 among them), the tensor cores to
+    ``MMA_MAX_K``, the shared-memory tiles past it."""
     for M, N in ((1, 2), (70000, 256)):
         assert tqgemm.qgemm_path(M, K, N) == path
 

@@ -520,3 +520,162 @@ def qgemm_mma(x, w, wzp, d, bias0, c1, lo: int, hi: int, vec: int = 2,
                                     np.add.at(stored, (pr[keep], n[keep]), 1)
     assert (stored == 1).all()
     return out.astype(np.int8)
+
+
+# --- qgemm's narrow path (csrc/qgemm.cu, qgemm_rows) ---------------------------
+
+ROW_COLS = qgemm_constant("kCols")  # output columns a lane
+ROW_CHUNK = qgemm_constant("kChunk")  # output columns a block
+ROW_STRIDE = qgemm_constant("kStride")  # words a staged row of W or constants
+ROW_ROWS = qgemm_constant("kRows")  # rows a thread per work item, K <= 8
+ROW_ROWS_WIDE = qgemm_constant("kRowsWide")  # the same, 8 < K <= 32
+THREADS = qgemm_constant("kThreads")
+HALF_DOWN = np.uint32(0x3EFFFFFF).view(np.float32)  # 0.5 - 2**-25
+
+
+def rows_geometry(M: int, K: int, N: int, blocks: int) -> dict:
+    """``launch_narrow``/``launch_rows``' launch for ``blocks`` resident
+    blocks: words of K a row (``kw``), rows a thread (``rows``), lanes a
+    row (``lanes``), rows a tile (``tile``), column chunks (grid y), work
+    items and blocks along the rows (grid x)."""
+    kw = next(v for v in (1, 2, 4, 8, 16) if 4 * v >= K)
+    rows = ROW_ROWS if kw <= 2 else ROW_ROWS_WIDE if kw <= 8 else 1
+    span, lanes_log2 = min(N, ROW_CHUNK), 0
+    while ROW_COLS << lanes_log2 < span:
+        lanes_log2 += 1
+    tile = 32 >> lanes_log2
+    chunks = -(-N // ROW_CHUNK)
+    items = -(-M // (rows * tile))
+    warps = THREADS // 32
+    bx = min(max(blocks // chunks, 1), -(-items // warps))
+    return dict(kw=kw, rows=rows, lanes=1 << lanes_log2, tile=tile, chunks=chunks, items=items,
+                bx=bx)
+
+
+def rows_items(geo: dict) -> np.ndarray:
+    """The work items in the order the warps take them: warp w of block b
+    starts at ``b * warps + w`` and strides by ``bx * warps``.  Returns
+    ``[n, 2]`` (global warp, item) pairs."""
+    warps = THREADS // 32
+    step = geo["bx"] * warps
+    gw = np.arange(step)
+    per = np.maximum(-(-(geo["items"] - gw) // step), 0)  # items warp gw takes
+    warp = np.repeat(gw, per)
+    k = np.arange(len(warp)) - np.repeat(np.cumsum(per) - per, per)
+    return np.stack([warp, warp + k * step], 1)
+
+
+def row_position(c):
+    """The staged word of chunk column ``c``: 4 words of padding after every 32."""
+    return c + 4 * (np.asarray(c) >> 5)
+
+
+def rows_stage(w, wzp, d, bias0, c1, n0: int, kw: int) -> np.ndarray:
+    """A block's shared memory for columns ``n0 ..``: rows 0 .. kw-1 the W
+    words (column n's bytes k = 4i .. 4i+3 in row i), then -wzp, d, bias0
+    and c1, column c at ``row_position(c)``; columns past N 0.  Asserts
+    each live word is written once and no padding word is."""
+    K, N = w.shape
+    sm = np.zeros((kw + 4, ROW_STRIDE), np.uint32)
+    hits = np.zeros(sm.shape, np.int64)
+    c = np.arange(ROW_CHUNK)
+    n = n0 + c
+    live = n < N
+    ns = np.minimum(n, N - 1)
+    wb = w.view(np.uint8).astype(np.uint64)
+    pos = row_position(c)
+    for i in range(kw):
+        v = np.zeros(ROW_CHUNK, np.uint64)
+        for b in range(4):
+            if 4 * i + b < K:
+                v |= np.where(live, wb[4 * i + b, ns], 0) << np.uint64(8 * b)
+        sm[i, pos] = v.astype(np.uint32)
+    for r, a in ((kw, -wzp.astype(np.int64)), (kw + 1, d.astype(np.int64))):
+        sm[r, pos] = (np.where(live, a[ns], 0) & 0xFFFFFFFF).astype(np.uint32)
+    sm[kw + 2, pos] = np.where(live, bias0[ns], np.float32(0)).astype(np.float32).view(np.uint32)
+    sm[kw + 3, pos] = np.where(live, c1[ns], np.float32(0)).astype(np.float32).view(np.uint32)
+    hits[:, pos] += 1
+    assert (hits.sum(1) == ROW_CHUNK).all() and hits.max() == 1
+    return sm
+
+
+def round_requant(q, bias0, c1, lo, hi) -> np.ndarray:
+    """``round_byte``: y = bias0 + c1 * f32(q) (the multiply, then the add)
+    clamped to [lo, hi], then ``trunc(y + copysign(0.5 - 2**-25, y))``;
+    the output bytes (uint8)."""
+    y, _ = np_epilogue(c1, np.asarray(q).astype(np.float32), bias0)
+    y = np.minimum(np.maximum(y, np.float32(lo)), np.float32(hi)).astype(np.float32)
+    t = (y + np.copysign(HALF_DOWN, y)).astype(np.float32)
+    return (np.trunc(t).astype(np.int64) & 0xFF).astype(np.uint8)
+
+
+def qgemm_rows(x, w, wzp, d, bias0, c1, lo: int, hi: int, *, blocks: int, x_off: int = 0,
+               out_off: int = 0) -> np.ndarray:
+    """int8 ``[M, N]`` by ``qgemm_rows``' steps, X at ``x_off`` and the
+    output at ``out_off`` bytes past a 16-byte aligned address, on a grid
+    of ``blocks`` resident blocks: per column chunk the staged shared
+    memory; per warp its work items in grid-stride order; per lane its rows
+    (``item * rows * tile + g + tile * j``) read in the entry point's mode
+    (vector, words or bytes; each vector and word read asserted aligned),
+    ``__dp4a`` against the staged W words and against ones, every group of
+    four columns computed, the epilogue (``round_requant``) and the stores
+    in their mode (alignment asserted).  Asserts every output is stored
+    once."""
+    M, K = x.shape
+    N = w.shape[1]
+    geo = rows_geometry(M, K, N, blocks)
+    kw, R, L, tile = geo["kw"], geo["rows"], geo["lanes"], geo["tile"]
+    vec = 4 * kw if kw < 4 else 16
+    x_mode = 2 if K == 4 * kw and x_off % vec == 0 else 1 if K % 4 == 0 and x_off % 4 == 0 else 0
+    out_mode = (2 if N % ROW_COLS == 0 and out_off % ROW_COLS == 0
+                else 1 if N % 4 == 0 and out_off % 4 == 0 else 0)
+    xb = x.view(np.uint8).reshape(-1).astype(np.uint64)
+    lane = np.arange(32)
+    s, g = lane % L, lane // L
+    pairs = rows_items(geo)
+    # rows [n_items, 32 lanes, R]
+    rows = (pairs[:, 1, None, None] * R * tile + g[None, :, None]
+            + tile * np.arange(R)[None, None, :])
+    ok = rows < M
+    words = np.zeros(rows.shape + (kw,), np.uint64)
+    for i in range(kw):
+        for b in range(4):
+            if 4 * i + b < K:
+                words[..., i] |= np.where(ok, xb[np.where(ok, rows * K + 4 * i + b, 0)], 0) << \
+                    np.uint64(8 * b)
+    addr = x_off + rows * K
+    if x_mode:
+        assert (addr[ok] % (vec if x_mode == 2 else 4) == 0).all()
+    out = np.zeros((M, N), np.int64)
+    stored = np.zeros((M, N), np.int64)
+    rs = np.zeros(rows.shape, np.int64)
+    for i in range(kw):
+        rs = dp4a(words[..., i], np.full(rows.shape, ONES, np.uint64), rs)
+    for chunk in range(geo["chunks"]):
+        n0 = chunk * ROW_CHUNK
+        sm = rows_stage(w, wzp, d, bias0, c1, n0, kw)
+        cb = ROW_COLS * s
+        live = np.minimum(ROW_COLS, N - n0 - cb)  # per lane
+        for col in range(ROW_COLS):
+            pos = row_position(cb + col)
+            acc = np.broadcast_to(sm[kw + 1, pos].view(np.int32).astype(np.int64)[None, :, None],
+                                  rows.shape).copy()
+            for i in range(kw):
+                acc = dp4a(words[..., i], np.broadcast_to(sm[i, pos][None, :, None], rows.shape),
+                           acc)
+            q = acc + rs * sm[kw, pos].view(np.int32).astype(np.int64)[None, :, None]
+            byte = round_requant(q.astype(np.int32), sm[kw + 2, pos].view(np.float32)[None, :, None],
+                                 sm[kw + 3, pos].view(np.float32)[None, :, None], lo, hi)
+            n = np.broadcast_to((n0 + cb + col)[None, :, None], rows.shape)
+            keep = ok & (live > col)[None, :, None]
+            out[rows[keep], n[keep]] = byte[keep].astype(np.int8)
+            np.add.at(stored, (rows[keep], n[keep]), 1)
+        # stores: the alignment of each lane's store in its mode
+        o = out_off + rows * N + n0 + cb[None, :, None]
+        st = ok & (live > 0)[None, :, None]
+        if out_mode == 2:
+            assert (o[st] % ROW_COLS == 0).all() and (live[live > 0] == ROW_COLS).all()
+        elif out_mode == 1:
+            assert (o[st] % 4 == 0).all() and (live[live > 0] % 4 == 0).all()
+    assert (stored == 1).all()
+    return out.astype(np.int8)
