@@ -13,7 +13,8 @@ line; any failure raises and the script exits non-zero:
    function, and a check that the exact2 flat kernel, the megakernel and
    the packed kernel keep 64 registers, no stack and no spills, and that
    ``qgemm``'s tensor-core (``qgemm_mma``) and narrow-path
-   (``qgemm_rows``) instantiations have no stack and no spills.
+   (``qgemm_rows``) instantiations and ``colfc``'s ``col_kernel`` have no
+   stack and no spills.
 3. kernels: each kernel held bit-equal against its plain torch version:
    ``qgemm``/``qdwconv`` at every layer shape of sine, speech and
    person_detect (batch 64) and on edge cases (``qgemm``'s: the epilogue
@@ -34,7 +35,11 @@ line; any failure raises and the script exits non-zero:
    depthwise path (``dw_edge_graph``; the phase prints how many ops of each
    plan take that path: all 14 of person_detect's depthwise ops); every
    input holds -128 and 127; ``colfc`` on sine in both compute
-   modes at batch 1000; ``megakernel`` on every segment of person_detect's
+   modes at batch 1000 and on the fabricated chains ``COL_CHAINS`` (widths
+   3, 5, 7, 9, 31, 32; K0 32 and 17; five layers; in_zp != 0; per-channel
+   c1; a RELU whose out_zp lifts the padded columns) at batches 0, 1, 15,
+   17 and 1000, in both modes and with x one byte off alignment;
+   ``megakernel`` on every segment of person_detect's
    ``fused`` and ``hybrid`` forwards, speech's and sine's ``fused``, the
    conv graph and its variant with a leading Quantize and nonzero weight
    zero points, ``pw_edge_graph``, ``dw_edge_graph`` and its variant with
@@ -74,7 +79,11 @@ line; any failure raises and the script exits non-zero:
    then exact2 again), ``colfc`` on sine at batch 1,048,576, ``megakernel`` (person_detect's
    fused segment) and ``packed`` (its prefix) at batch 8192, ``packed``
    beside the flat kernel in ``exact`` mode on the same 23 layers (the
-   same plan; the two outputs checked equal), then again.
+   same plan; the two outputs checked equal), then again.  Last, sine at
+   batches 1024, 1,048,576 and 16,777,216 through ``colfc``, the ``pallas`` path
+   (its three ``qgemm`` launches) and the flat kernel: call ms and device ms
+   (replayed from a CUDA graph) beside the bound, each output checked equal
+   to ``colfc_reference``.
 4. main paths, each driven with the launch counts set to 0 just before it
    and read just after: the three Rust goldens through ``compile_tflite``
    with the default backend (``"flat"`` for person_detect and speech,
@@ -542,6 +551,50 @@ def edge_graph(name, w_row, bias0, c1: float, act=FusedActivation.NONE,
               _fc(1, np.asarray(w_row).reshape(1, n), bias0, c1, act, out_scale)]
     return Graph(name=name, layers=layers, input_shape=(1,), input_q=q,
                  input_dtype=np.dtype(np.int8), output_shape=(n,), output_q=q,
+                 output_dtype=np.dtype(np.int8))
+
+
+# colfc's fabricated chains: (name, K0, output widths, activations, input
+# zero point, per-channel c1).  Widths 3, 5, 7, 9, 31 and 32 (n-tiles 1-4,
+# odd ones and full ones), K0 = 32 and 17, five layers, RELU with a
+# positive out_zp (it lifts the padded columns, which the next layer's
+# zero rows of W must cancel), N_out 1 (bytes) and even (pairs)
+COL_CHAINS = (
+    ("col_3_5_7", 3, (5, 7, 3), ("NONE", "RELU", "RELU6"), 19, True),
+    ("col_k32", 32, (32, 32), ("RELU", "NONE"), -128, True),
+    ("col_5_layers", 4, (16, 32, 8, 24, 2), ("RELU", "NONE", "RELU6", "RELU", "NONE"), 77, True),
+    ("col_odd", 17, (9, 31, 1), ("NONE", "RELU6", "NONE"), -3, False),
+    ("col_relu_lift", 8, (5, 3), ("RELU", "RELU"), 127, True),
+)
+
+
+def col_chain_graph(rng, name: str, k0: int, widths, acts, in_zp: int,
+                    per_channel: bool) -> Graph:
+    """int8 [B, K0] -> a chain of FullyConnected layers of the port's IR:
+    uniform int8 weights (w_zp 0), the input zero point ``in_zp`` and each
+    later layer's that of the layer before; out_zp in [1, 40] after a RELU
+    or RELU6, else in [-20, 20]; c1 per channel (``per_channel``) or one,
+    scaled so that y spreads over the int8 range."""
+    def q(scale, zp):
+        return QuantInfo(np.array([scale], np.float32), np.array([zp], np.int64))
+
+    layers, k, zp = [], k0, in_zp
+    for i, (n, act) in enumerate(zip(widths, acts)):
+        act = FusedActivation[act]
+        out_zp = int(rng.integers(1, 41) if act is not FusedActivation.NONE
+                     else rng.integers(-20, 21))
+        scale = 40.0 / (74.0 * 74.0 * np.sqrt(k))
+        c1 = (rng.uniform(0.3, 1.5, n) if per_channel else rng.uniform(0.3, 1.5)) * scale
+        layers.append(FullyConnectedLayer(
+            index=i, weights=rng.integers(-128, 128, (k, n), dtype=np.int8), in_q=q(0.05, zp),
+            w_q=q(0.02, 0), bias_q=q(0.001, 0), out_q=q(0.1, out_zp),
+            c0=rng.normal(0.0, 20.0, n).astype(np.float32),
+            c1=np.asarray(c1, np.float32) if per_channel else np.float32(c1),
+            c2=np.zeros(n, np.int32), c3=0, activation=act, flatten_input=False,
+            out_shape=(n,)))
+        k, zp = n, out_zp
+    return Graph(name=name, layers=layers, input_shape=(k0,), input_q=q(0.05, in_zp),
+                 input_dtype=np.dtype(np.int8), output_shape=(k,), output_q=q(0.1, zp),
                  output_dtype=np.dtype(np.int8))
 
 
@@ -1045,9 +1098,13 @@ def whole_network_checks(dev, rng) -> dict:
                 mutant = flat_forward_reference(packed_fn.flat_ops, x.reshape(b, -1), "exact2")
                 packed_corners[label] = int((mutant != want.reshape(b, -1)).sum().item())
 
-    def col_check(g, label, x, compute):
+    def col_check(g, label, x, compute, offset=0):
+        """x is copied ``offset`` bytes past an aligned address first."""
         col_fn, meta = build_col_kernel(g, compute=compute, device=dev)
-        errs["colfc"].append({"case": f"{label} {meta['compute']} B{x.shape[0]}",
+        if offset:
+            raw = torch.empty(x.numel() + offset, dtype=torch.int8, device=dev)
+            x = raw[offset:].view(x.shape).copy_(x)
+        errs["colfc"].append({"case": f"{label} {meta['compute']} B{x.shape[0]} +{offset}",
                               "max_abs_err": max_abs_err(col_fn(x),
                                                          colfc_reference(col_fn.plan, x))})
 
@@ -1102,6 +1159,15 @@ def whole_network_checks(dev, rng) -> dict:
     xs = torch.from_numpy(rng.integers(-128, 128, (1000, 1), dtype=np.int8)).to(dev)
     for compute in ("i32", "f32"):
         col_check(sine, "sine", xs, compute)
+    for spec in COL_CHAINS:
+        g = col_chain_graph(rng, *spec)
+        for b in (0, 1, 15, 17, 1000):
+            xn = rng.integers(-128, 128, (b, int(np.prod(g.input_shape))), dtype=np.int8)
+            xn.flat[:2] = (-128, 127)[:xn.size]  # both int8 rails
+            x = torch.from_numpy(xn).to(dev)
+            for compute in ("i32", "f32"):
+                col_check(g, g.name, x, compute)
+            col_check(g, g.name, x, "i32", offset=1)
     batches = (64, 3, 0)
     for name in MODELS:
         g = parse(model_path(name))
@@ -1344,6 +1410,7 @@ def time_whole_network(dev, rng) -> dict:
     res["colfc_sine"] = timed(col_fn, lambda v: colfc_reference(col_fn.plan, v), x,
                               b * (meta["k0"] + meta["n_out"]) + weights, 2 * b * weights,
                               compute=meta["compute"])
+    res["colfc_sine"]["device_ms"] = graph_ms(lambda: col_fn(x))
     pd = parse(model_path("person_detect"))
     x = torch.from_numpy(rng.integers(-128, 128, (8192, 96, 96, 1), dtype=np.int8)).to(dev)
     (seg,) = build_fused_forward(pd, 0, device=dev).segments
@@ -1366,6 +1433,50 @@ def time_whole_network(dev, rng) -> dict:
         layers=f"0-{n_layers - 1}",
         equal_to_packed=bool(torch.equal(flat_fn(x2), packed_fn(x).reshape(8192, -1))))
     res["packed_person_detect"]["ms_after_flat"] = time_ms(lambda: packed_fn(x), 20)
+    return res
+
+
+# sine's timed batches: the last two are the kernel's, the first one's
+# call ms less its device ms is the wrappers' host cost a call
+SINE_BATCHES = (1024, 1 << 20, 1 << 24)
+
+
+def time_sine(dev, rng) -> dict:
+    """sine at ``SINE_BATCHES`` through ``colfc``, the ``pallas`` path and
+    the flat kernel, each output checked equal to ``colfc_reference``: call
+    ms (CUDA events around 20 calls; ``pallas``: 20 forwards through
+    ``predict_inner``) and device ms (``graph_ms``; ``pallas``: the sum over
+    its three ``qgemm`` launches, each replayed alone) beside the bound of
+    the function (each input and output byte and the weights once, or
+    2 x MACs at the int8 peak)."""
+    sine = parse(model_path("sine"))
+    col_fn, meta = build_col_kernel(sine, device=dev)
+    flat_fn, _, _ = build_flat_kernel(sine, device=dev)
+    pallas = compile_tflite(model_path("sine"), name="sine", backend="pallas")
+    weights = sum(int(wt.size) for wt, *_ in col_fn.plan)
+    res = {}
+    for b in SINE_BATCHES:
+        x = torch.from_numpy(rng.integers(-128, 128, (b, meta["k0"]), dtype=np.int8)).to(dev)
+        want = colfc_reference(col_fn.plan, x)
+        nbytes, ops = b * (meta["k0"] + meta["n_out"]) + weights, 2 * b * weights
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+        row = {"bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "ops": ops}
+        for name, fn in (("colfc", col_fn), ("flat", flat_fn)):
+            row[name] = {"max_abs_err": max_abs_err(fn(x), want), "ms": time_ms(lambda: fn(x), 20),
+                         "device_ms": graph_ms(lambda: fn(x)), "launches": 1}
+        with Recorder("capture") as rec:
+            y = pallas.predict_inner(x)
+        calls = rec.calls["qgemm"]
+        row["pallas"] = {"max_abs_err": max_abs_err(y.reshape(want.shape), want),
+                         "ms": time_ms(lambda: pallas.predict_inner(x), 20),
+                         "device_ms": sum(graph_ms(lambda a=a, k=k: kernels.qgemm(*a, **k))
+                                          for a, k in calls),
+                         "launches": len(calls)}
+        del rec, calls, y, want, x
+        torch.cuda.empty_cache()
+        res[str(b)] = row
     return res
 
 
@@ -1416,10 +1527,11 @@ def main() -> int:
         (fn,) = [u for f, u in usage.items() if key in f]
         if fn["registers"] > 64 or fn["stack"] or fn["spill_stores"] or fn["spill_loads"]:
             raise AssertionError(f"{key}: {fn}")
-    # qgemm's tensor-core and narrow-path instantiations: no stack, no spills
+    # qgemm's tensor-core and narrow-path instantiations and colfc: no stack,
+    # no spills
     for f, fn in usage.items():
-        if ("qgemm_mma" in f or "qgemm_rows" in f) and (fn["stack"] or fn["spill_stores"]
-                                                        or fn["spill_loads"]):
+        if (("qgemm_mma" in f or "qgemm_rows" in f or "col_kernel" in f)
+                and (fn["stack"] or fn["spill_stores"] or fn["spill_loads"])):
             raise AssertionError(f"{f}: {fn}")
 
     # 3. kernels against their plain versions
@@ -1473,11 +1585,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     timing_whole = time_whole_network(dev, rng)
     torch.cuda.empty_cache()
-    if any(v["max_abs_err"] for v in list(timing.values()) + list(timing_whole.values())):
+    sine_times = time_sine(dev, rng)
+    if any(v["max_abs_err"] for v in list(timing.values()) + list(timing_whole.values())
+           + [r[k] for r in sine_times.values() for k in ("colfc", "flat", "pallas")]):
         raise AssertionError("kernel differs from its plain version at the timed batch")
     if not timing_whole["flatpack_exact_packed_layers"]["equal_to_packed"]:
         raise AssertionError("the flat kernel in exact mode differs from packed on its layers")
-    emit({"phase": "kernel_times", "batch": 8192, "device": smi, **timing, **timing_whole})
+    emit({"phase": "kernel_times", "batch": 8192, "device": smi, **timing, **timing_whole,
+          "sine_by_batch": sine_times})
 
     # 4. main paths, each with the launch counts set to 0 just before it
     def drive(model, requests):

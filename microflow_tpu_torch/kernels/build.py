@@ -41,7 +41,7 @@ SIGNATURES = {
     "qdwconv": ("mf_qdwconv",
                 [_P, _P, _P, _P, _P, _P] + [_I] * 14 + [_F, _F] + [_I] * 6 + [_P]),
     "flatpack": ("mf_flatpack", [_P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "colfc": ("mf_colfc", [_P, _P, _L, _P, _I, _I, _I, _I, _I, _P]),
+    "colfc": ("mf_colfc", [_P, _P, _L, _P, _I, _I, _I, _I, _P]),
     "megakernel": ("mf_megakernel", [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P]),
     "packed": ("mf_packed", [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P]),
 }

@@ -3,15 +3,20 @@
 
 Port of ``microflow_tpu/kernels/colfc.py::build_col_kernel``, the JAX
 package's experimental ``colfc`` backend (sine: 1 -> 16 -> 16 -> 1).  The
-TPU kernel put the batch on the vector lanes; on the card that is simply
-one thread per sample, running the whole chain with its activations in
-registers.  Every layer is a FullyConnected with ``w_zp == 0`` and both
-dims at most 32, so ``q = acc + d`` with ``d = -in_zp * colsum(W)``, then
-the ``exact2`` epilogue of the flat kernel (``kernels/flatpack.py``).
-The weights are baked into the plan at build.
+TPU kernel put the batch on the vector lanes; on the card the samples go
+on the M of the int8 tensor cores' ``mma.sync`` (16 a tile) and the
+features on its N, one instruction per 16 samples and 8 features of a
+layer, and each layer's accumulators become the next layer's A fragment in
+registers (``pack_col_plan`` permutes the next layer's rows of W to match).
+Every layer is a FullyConnected with ``w_zp == 0`` and both dims at most
+32, so ``q = acc + d`` with ``d = -in_zp * colsum(W)``, then the ``exact2``
+epilogue of the flat kernel (``kernels/flatpack.py``).  The weights are
+baked into the plan at build.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -22,8 +27,8 @@ from . import LAUNCHES, build
 from .flatpack import SMEM_BYTES, _f32_bits, _requant
 
 MAX_WIDTH = 32  # feature widths beyond this are not a tiny chain
-WIDTH_CLASSES = (8, 16, 32)  # the kernel's compiled widths (csrc/colfc.cu)
-HEADER = 8  # int32 words per layer header in the packed plan
+HEADER = 4  # int32 words per layer header in the packed plan (csrc/colfc.cu kHeader)
+NARROW_OUT = 2  # N_out up to which the last layer's columns repeat (csrc/colfc.cu kNarrowOut)
 
 
 def plan_col(graph: Graph, max_width: int = MAX_WIDTH):
@@ -85,51 +90,76 @@ def colfc_reference(plan, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _width_class(n: int) -> int:
-    return next(c for c in WIDTH_CLASSES if n <= c)
+def feature_order() -> np.ndarray:
+    """pi: the feature that A position p (0..31) of layer l+1 holds when the
+    kernel packs layer l's C fragments into it.  Lane 4g+t holds columns
+    8j+2t and 8j+2t+1 of n-tile j; the odd n-tile of each pair fills A
+    positions 4t, 4t+1 and the even one 4t+2, 4t+3 (n-tiles 0-1 in the
+    lower half of K, 2-3 in the upper), so pi(4t+i) = 2t + i%2 + 8*(i < 2)
+    (+16 in the upper half)."""
+    p = np.arange(32)
+    i = p % 4
+    return 16 * (p // 16) + 2 * ((p % 16) // 4) + i % 2 + 8 * (i < 2)
 
 
-def pack_col_plan(plan, compute: str) -> np.ndarray:
-    """The plan as one int32 buffer: per layer a header (K, N, K class,
-    N class, lo and hi as f32 bits, data offset in words), then per layer
-    ``W_T`` zero-padded to [N class][K class] and ``d`` (both i32, or f32
-    for ``compute="f32"``), ``bias0`` and ``c1`` (f32), each padded to the
-    N class."""
+def pack_col_plan(plan) -> np.ndarray:
+    """The plan as one int32 buffer, as ``csrc/colfc.cu`` reads it: per layer
+    a header (n-tiles ``nt = ceil(N / 8)``, lo and hi as f32 bits, the
+    offset of its data in words), then per layer its data: the B fragments
+    of ``mma.sync`` m16n8k32, ``[nt][32 lanes][2 words]`` (lane 4g+t: word
+    0 holds K positions 4t..4t+3 of column 8j+g, word 1 positions
+    16+4t..16+4t+3), then ``d``, ``bias0`` and ``c1``, each ``[nt][8]``,
+    zero past N.  Layer 0's K positions are its inputs in order; a later
+    layer's are permuted by ``feature_order`` and zero past its K.  A last
+    layer of N <= ``NARROW_OUT`` has its N columns repeated over its 8
+    (column c is column c % N), for the kernel's one epilogue a lane.  The
+    same buffer serves both ``compute`` modes."""
     n_layers = len(plan)
     header = np.zeros((n_layers, HEADER), np.int32)
     data, off = [], n_layers * HEADER
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    # the K position of byte b of a lane's two B words
+    kpos = np.concatenate([4 * t[:, None] + np.arange(4), 16 + 4 * t[:, None] + np.arange(4)], 1)
     for i, (wt, d, b0, c1, lo, hi) in enumerate(plan):
         n, k = wt.shape
-        km, nm = _width_class(k), _width_class(n)
-        w = np.zeros((nm, km), np.int32)
-        w[:n, :k] = wt
-        dd = np.zeros(nm, np.int32)
-        dd[:n] = d[:, 0]
-        if compute == "f32":
-            w, dd = w.astype(np.float32).view(np.int32), dd.astype(np.float32).view(np.int32)
-        bb, cc = np.zeros(nm, np.float32), np.zeros(nm, np.float32)
-        bb[:n], cc[:n] = b0[:, 0], c1[:, 0]
-        header[i] = (k, n, km, nm, _f32_bits(lo), _f32_bits(hi), off, 0)
-        for arr in (w.reshape(-1), dd, bb.view(np.int32), cc.view(np.int32)):
-            data.append(arr)
+        nt = -(-n // 8)
+        # the column each of the 8 * nt holds; past N none, or N's repeated
+        cols = np.arange(8 * nt)
+        cols = cols % n if i == n_layers - 1 and n <= NARROW_OUT else np.where(cols < n, cols, -1)
+        feature = feature_order() if i else np.arange(32)
+        w = np.zeros((32, 8 * nt), np.int64)  # [K position, column]
+        live = feature < k
+        w[np.ix_(live, cols >= 0)] = wt.T[np.ix_(feature[live], cols[cols >= 0])]
+        frag = w[kpos[None], 8 * np.arange(nt)[:, None, None] + g[None, :, None]]
+        consts = [np.zeros(8 * nt, np.int32), np.zeros(8 * nt, np.float32),
+                  np.zeros(8 * nt, np.float32)]
+        for arr, src in zip(consts, (d, b0, c1)):
+            arr[cols >= 0] = src[cols[cols >= 0], 0]
+        header[i] = (nt, _f32_bits(lo), _f32_bits(hi), off)
+        for arr in (frag.astype(np.int8).reshape(-1).view(np.int32), *consts):
+            data.append(arr.view(np.int32))
             off += arr.size
     return np.concatenate([header.reshape(-1)] + data)
 
 
 class ColKernel:
     """``col_fn``: int8 [B, K0] -> int8 [B, N_out].  CUDA tensors launch the
-    kernel on the plan's device buffer (built once); CPU tensors run
-    ``colfc_reference``."""
+    kernel on the packed plan's device buffer (``pack_col_plan``, uploaded
+    once); CPU tensors run
+    ``colfc_reference``.  The kernel's entry point is looked up at the
+    first launch and kept."""
 
-    def __init__(self, plan, compute: str, device: torch.device):
+    def __init__(self, plan, packed: np.ndarray, compute: str, device: torch.device):
         self.plan = plan
         self.compute = compute
         self.k0 = plan[0][0].shape[1]
         self.n_out = plan[-1][0].shape[0]
         self.device = device
         self.buf = None
+        self._fn = None
         if device.type == "cuda":
-            self.buf = torch.from_numpy(pack_col_plan(plan, compute)).to(device)
+            self.buf = torch.from_numpy(packed).to(device)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if x.device.type == "cpu":
@@ -146,11 +176,13 @@ class ColKernel:
         out = torch.empty((b, self.n_out), dtype=torch.int8, device=x.device)
         if b == 0:
             return out
-        fn = build.library("colfc").mf_colfc
-        with torch.cuda.device(x.device):
-            rc = fn(x.data_ptr(), out.data_ptr(), b, self.buf.data_ptr(), len(self.plan),
-                    self.buf.numel(), self.k0, self.n_out, int(self.compute == "f32"),
-                    torch.cuda.current_stream().cuda_stream)
+        if self._fn is None:
+            self._fn = build.library("colfc").mf_colfc
+        with (contextlib.nullcontext() if x.device.index == torch.cuda.current_device()
+              else torch.cuda.device(x.device)):
+            rc = self._fn(x.data_ptr(), out.data_ptr(), b, self.buf.data_ptr(), len(self.plan),
+                          self.buf.numel(), self.k0, self.n_out,
+                          torch.cuda.current_stream().cuda_stream)
         build.check(rc, "colfc")
         LAUNCHES["colfc"] += 1
         return out
@@ -166,7 +198,10 @@ def build_col_kernel(graph: Graph, compute: str = "i32", device=None):
 
     ``compute``: ``"i32"`` accumulates in integers; ``"f32"`` in f32, which
     is exact, and so gives the same bits, while every partial sum stays
-    below 2**24 -- otherwise it falls back to ``"i32"``."""
+    below 2**24 -- otherwise it falls back to ``"i32"``.  The mode is the
+    JAX package's and is kept in ``meta``; on the card both run the one s32
+    tensor-core path, whose bits are the same, and the CPU's plain version
+    is exact in float64 either way."""
     if compute not in ("f32", "i32"):
         raise ValueError(f"compute {compute!r}")
     from ..compiler.builder import resolve_device
@@ -177,7 +212,8 @@ def build_col_kernel(graph: Graph, compute: str = "i32", device=None):
         return None
     if compute == "f32" and not f32_exact(plan):
         compute = "i32"
-    if pack_col_plan(plan, compute).nbytes > SMEM_BYTES:
+    packed = pack_col_plan(plan)
+    if packed.nbytes > SMEM_BYTES:
         return None
-    col_fn = ColKernel(plan, compute, device)
+    col_fn = ColKernel(plan, packed, compute, device)
     return col_fn, dict(k0=col_fn.k0, n_out=col_fn.n_out, compute=compute)

@@ -3,7 +3,7 @@
 the port: a change against its parent.
 
     python3 scripts/torch_sass_diff.py PARENT CHANGE
-        [--source flatpack] [--pair flat_kernelILb0E=flat_kernelILb0E ...]
+        [--source flatpack] [--pair flat_kernelILb0E=flat_kernelILb0E ... | --all]
 
 PARENT and CHANGE are the roots of two checkouts (a ``git archive`` of each
 will do).  Each builds ``microflow_tpu_torch/csrc/<source>.cu`` with its own
@@ -11,7 +11,10 @@ will do).  Each builds ``microflow_tpu_torch/csrc/<source>.cu`` with its own
 process of its own; ``cuobjdump -sass`` dumps the library, and each
 ``--pair`` compares the entry function of PARENT whose name contains the
 left-hand text with the one of CHANGE whose name contains the right-hand
-text, instruction by instruction, addresses and encodings dropped.  Prints
+text, instruction by instruction, addresses and encodings dropped; ``--all``
+pairs every entry function of one name in both (the hash that names an
+anonymous namespace, which follows the source's path, left out) and lists
+those in only one.  Prints
 one JSON line: per pair the functions' names, their instruction counts,
 whether the code is identical, how many instructions differ and the first
 few that do.  Needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit), no card.
@@ -63,19 +66,28 @@ def main() -> int:
     ap.add_argument("--source", default="flatpack")
     ap.add_argument("--pair", nargs="+",
                     default=["flat_kernelILb0E=flat_kernelILb0E", "flat_kernelILb1E=flat_kernelILb1E"])
+    ap.add_argument("--all", action="store_true")
     args = ap.parse_args()
     old, new = sass(args.parent, args.source), sass(args.change, args.source)
+    plain = lambda funcs: {re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", f): f for f in funcs}
+    old_by, new_by = plain(old), plain(new)
+    if args.all:
+        names = [(old_by[n], new_by[n]) for n in sorted(set(old_by) & set(new_by))]
+    else:
+        names = [(pick(old, left), pick(new, right))
+                 for left, right in (pair.split("=") for pair in args.pair)]
     pairs = []
-    for pair in args.pair:
-        left, right = pair.split("=")
-        a, b = pick(old, left), pick(new, right)
+    for a, b in names:
         ops = difflib.SequenceMatcher(None, old[a], new[b], autojunk=False).get_opcodes()
         diff = [(old[a][i1:i2], new[b][j1:j2]) for tag, i1, i2, j1, j2 in ops if tag != "equal"]
         pairs.append({"parent": a, "change": b, "parent_instructions": len(old[a]),
                       "change_instructions": len(new[b]), "identical": old[a] == new[b],
                       "differing": sum(max(len(x), len(y)) for x, y in diff),
                       "first_differences": diff[:5]})
-    print(json.dumps({"source": args.source, "pairs": pairs}), flush=True)
+    only = lambda a, b: sorted(set(a) - set(b)) if args.all else []
+    print(json.dumps({"source": args.source, "pairs": pairs,
+                      "only_parent": only(old_by, new_by), "only_change": only(new_by, old_by)}),
+          flush=True)
     return 0
 
 

@@ -208,6 +208,19 @@ def test_colfc_kernel_matches_plain(cuda, compute):
     assert torch.equal(got, colfc_reference(col_fn.plan, x.to(cuda)))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", chip_smoke.COL_CHAINS, ids=[c[0] for c in chip_smoke.COL_CHAINS])
+def test_colfc_kernel_matches_plain_on_chains(cuda, spec):
+    """The fabricated chains of ``chip_smoke.py``, x aligned and one byte off."""
+    rng = np.random.default_rng(5)
+    col_fn, meta = build_col_kernel(chip_smoke.col_chain_graph(rng, *spec), device=cuda)
+    for b in (1, 15, 17, 1000):
+        x = torch.from_numpy(rng.integers(-128, 128, (b, meta["k0"]), dtype=np.int8)).to(cuda)
+        raw = torch.empty(x.numel() + 1, dtype=torch.int8, device=cuda)
+        for xo in (x, raw[1:].view(x.shape).copy_(x)):
+            assert torch.equal(col_fn(xo), colfc_reference(col_fn.plan, x)), b
+
+
 def _graph(name):
     if name == "conv_graph":
         return chip_smoke.conv_graph(np.random.default_rng(0))

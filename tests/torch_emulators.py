@@ -679,3 +679,200 @@ def qgemm_rows(x, w, wzp, d, bias0, c1, lo: int, hi: int, *, blocks: int, x_off:
             assert (o[st] % 4 == 0).all() and (live[live > 0] % 4 == 0).all()
     assert (stored == 1).all()
     return out.astype(np.int8)
+
+
+# --- the column-FC kernel (csrc/colfc.cu, col_kernel) ---------------------------
+
+def colfc_constant(name: str) -> int:
+    """A ``constexpr int`` of ``csrc/colfc.cu``, read from the source."""
+    with open(os.path.join(build.CSRC, "colfc.cu")) as f:
+        return int(re.search(rf"constexpr int {name} = (0x[0-9A-Fa-f]+|\d+);", f.read()).group(1),
+                   0)
+
+
+COL_TILES = colfc_constant("kTilesWarp")  # m-tiles of 16 samples a warp's work item
+COL_HEADER = colfc_constant("kHeader")  # words a layer's header
+COL_NARROW_IN = colfc_constant("kNarrowIn")  # K0 up to which a lane reads whole rows
+COL_NARROW_OUT = colfc_constant("kNarrowOut")  # N_out up to which a lane writes whole rows
+def exact2_int(acc, b0, c1, lo, hi) -> np.ndarray:
+    """The kernel's ``exact2_int``: y = b0 + c1 * f32(acc) (the multiply,
+    then the add), t = y + copysign(0.5, y), clamped to [lo, hi] only where
+    the bounds are tighter than int8's, truncated to int32
+    (``__float2int_rz`` saturates)."""
+    f = np.asarray(acc, np.int64).astype(np.float32)
+    y = (np.float32(b0) + (np.float32(c1) * f).astype(np.float32)).astype(np.float32)
+    t = (y + np.copysign(np.float32(0.5), y)).astype(np.float32)
+    if lo > -128 or hi < 127:
+        t = np.minimum(np.maximum(t, np.float32(lo)), np.float32(hi))
+    return np.trunc(np.clip(t.astype(np.float64), -2.0**31, 2.0**31 - 1)).astype(np.int64)
+
+
+def pack_s8(a, b, c) -> np.ndarray:
+    """``cvt.pack.sat.s8.s32.b32``: (c << 16) | (sat8(a) << 8) | sat8(b),
+    uint64 words of 32 bits."""
+    sat = lambda v: np.clip(v, -128, 127).astype(np.int64) & 0xFF
+    return (((np.asarray(c, np.uint64) & np.uint64(0xFFFF)) << np.uint64(16))
+            | (sat(a).astype(np.uint64) << np.uint64(8)) | sat(b).astype(np.uint64))
+
+
+def mma_tiles(acc: np.ndarray, a: np.ndarray, b: np.ndarray) -> None:
+    """``mma_s8`` on every m-tile at once: ``acc [T, 32 lanes, 4] += A x B``,
+    A from the A registers ``a [T, 32, 4]`` (uint32 words), B from the B
+    registers ``b [32, 2]``, by PTX's fragment tables."""
+    A = np.zeros((a.shape[0], 16, 32), np.int64)
+    A[:, A_ROW, A_COL] = signed_bytes(a).reshape(a.shape[0], 32, 16)
+    B = np.zeros((32, 8), np.int64)
+    B[B_ROW, B_COL] = signed_bytes(b).reshape(32, 8)
+    acc += (A @ B)[:, D_ROW, D_COL]
+
+
+def pack_tiles(q: dict, nt: int) -> np.ndarray:
+    """The next layer's A registers ``[T, 32, 4]`` from each n-tile j's four
+    epilogue outputs a lane ``q[j] [T, 32, 4]`` (C registers: (g, 8j+2t),
+    (g, 8j+2t+1), (g+8, ..)), as ``run_layer`` packs them: registers
+    2*(j//2) (row g) and 2*(j//2)+1 (row g+8) get the even n-tile's pair
+    (``pack_s8``), shifted to the high half by the odd n-tile's
+    ``pack_s8`` or, for a last even n-tile, by 16 bits; registers 2-3 zero
+    where nt <= 2."""
+    first = q[0]
+    na = np.zeros(first.shape[:2] + (4,), np.uint64)
+    for j in range(nt):
+        r = 2 * (j >> 1)
+        for s in range(2):
+            pair = (q[j][..., 2 * s + 1], q[j][..., 2 * s])
+            if j & 1:
+                na[..., r + s] = pack_s8(*pair, na[..., r + s])
+            elif j + 1 < nt:
+                na[..., r + s] = pack_s8(*pair, 0)
+            else:
+                na[..., r + s] = (pack_s8(*pair, 0) << np.uint64(16)) & np.uint64(0xFFFFFFFF)
+    return na
+
+
+def colfc_mma(buf: np.ndarray, x: np.ndarray, n_layers: int, n_out: int, *, x_off: int = 0,
+              out_off: int = 0) -> np.ndarray:
+    """int8 ``[B, N_out]`` by ``col_kernel``'s steps, x at ``x_off`` and the
+    output at ``out_off`` bytes past an aligned address, from the packed
+    plan ``buf`` (``kernels/colfc.py::pack_col_plan``) read as the kernel
+    reads it.  The m-tiles of every work item at once: lane 4g+t's rows r =
+    item * 16 * kTilesWarp + 16m + g and r + 8.  Its A registers: for K0 <=
+    kNarrowIn, lane i of the warp reads rows i, i + 32, .. of the item
+    whole (a word where K0 == 4 and x is aligned, else bytes) and lanes
+    t == 0 take rows g and g + 8 from lane (16m + 8s + g) % 32 by shuffles;
+    else each lane reads its own in words (K0 % 4 == 0 and x aligned; each
+    word asserted aligned) or bytes, zero past K0 and past B.  Per layer its
+    header, its B fragment words, d, bias0 and c1 of columns
+    8j+2t and 8j+2t+1 per n-tile j, ``mma_s8``, ``exact2_int`` of each C
+    register and the packing into the next A (``pack_tiles``).  For N_out
+    <= kNarrowOut the last layer (its columns repeated by the plan) keeps
+    one C register a lane, register t of lane 4g+t, and lane i gathers row
+    16m + 8s + g's columns from lanes 4g + 2s and 4g + 2s + 1 and writes
+    it whole (a pair where N_out is 2 and out is aligned; asserted); else
+    each lane writes its features in pairs (N_out even and out aligned;
+    asserted) or bytes.  Asserts no
+    accumulator leaves int32 and every output is stored once."""
+    B, k0 = x.shape
+    header = buf[:n_layers * COL_HEADER].reshape(n_layers, COL_HEADER)
+    rows_item = 16 * COL_TILES
+    items = -(-B // rows_item)
+    r = np.arange(items * COL_TILES)[:, None] * 16 + G[None, :]
+    rows = np.stack([r, r + 8], -1)  # [T, 32 lanes, 2]: rows g and g + 8
+    ok = rows < B
+    words = k0 % 4 == 0 and x_off % 4 == 0
+    xb = x.view(np.uint8).reshape(-1).astype(np.uint64)
+    a = np.zeros(r.shape + (4,), np.uint64)
+
+    def read_row(row, live, n):  # bytes 0 .. n-1 of each live row, as words
+        addr = row * k0
+        if words:
+            assert ((x_off + addr)[live] % 4 == 0).all()
+        v = np.zeros(row.shape, np.uint64)
+        for i in range(n):
+            li = live & (i < k0)
+            v |= np.where(li, xb[np.where(li, addr + i, 0)], 0) << np.uint64(8 * i)
+        return v
+
+    if k0 <= COL_NARROW_IN:
+        # lane i's rows i + 32u of each item, then the shuffles
+        lanes = np.arange(-(-rows_item // 32) * 32)
+        item_rows = np.arange(items)[:, None] * rows_item + lanes[None, :]
+        live = (item_rows < B) & (lanes[None, :] < rows_item)
+        v = read_row(item_rows, live, COL_NARROW_IN)  # [items, lanes]
+        m_tile = np.arange(items * COL_TILES)
+        for s in range(2):
+            src = (16 * (m_tile % COL_TILES))[:, None] + 8 * s + G[None, :]  # row in the item
+            got = v[(m_tile // COL_TILES)[:, None], src]
+            a[..., s] = np.where(T[None, :] == 0, got, 0)
+    else:
+        for h in range(2):
+            if 16 * h >= k0:
+                break
+            k = 16 * h + 4 * T
+            for s in range(2):
+                live = ok[..., s] & (k < k0)[None, :]
+                addr = rows[..., s] * k0 + k[None, :]
+                if words:
+                    assert ((x_off + addr)[live] % 4 == 0).all()
+                for i in range(min(4, k0)):
+                    li = live & (k + i < k0)[None, :]
+                    a[..., 2 * h + s] |= np.where(li, xb[np.where(li, addr + i, 0)], 0) << \
+                        np.uint64(8 * i)
+    narrow_out = n_out <= COL_NARROW_OUT
+    for li, (nt, lo, hi, off) in enumerate(header):
+        lo, hi = np.int32(lo).view(np.float32), np.int32(hi).view(np.float32)
+        q = {}
+        for j in range(nt):
+            b = buf[off + 2 * (32 * j + LANE)[:, None] + np.arange(2)].view(np.uint32)
+            col = 8 * j + 2 * T[:, None] + np.arange(2)  # [32, 2]: columns 8j+2t, +1
+            d = buf[off + 64 * nt + col].astype(np.int64)
+            b0 = buf[off + 72 * nt + col].view(np.float32)
+            c1 = buf[off + 80 * nt + col].view(np.float32)
+            acc = np.broadcast_to(d[:, [0, 1, 0, 1]], a.shape).copy()
+            mma_tiles(acc, a, b)
+            assert (acc >= -2**31).all() and (acc < 2**31).all()
+            if narrow_out and li == n_layers - 1:
+                # run_last_narrow: lane t keeps C register t, column 2t + t%2
+                assert nt == 1
+                keep = acc[:, LANE, T]
+                last = exact2_int(keep, b0[LANE, T & 1], c1[LANE, T & 1], lo, hi)  # [T, 32]
+                break
+            q[j] = exact2_int(acc, b0[:, [0, 1, 0, 1]], c1[:, [0, 1, 0, 1]], lo, hi)
+        else:
+            a = pack_tiles(q, nt)
+    out = np.zeros((B, n_out), np.int64)
+    stored = np.zeros((B, n_out), np.int64)
+    if narrow_out:
+        # store_narrow: lane i of item it writes row it * rows_item + i + 32u
+        # (row 16m + 8s + g of the item), column e from lane 4g + 2s + e
+        pairs = n_out == 2 and out_off % 2 == 0
+        lanes = np.arange(-(-rows_item // 32) * 32)
+        m, s = lanes // 16, (lanes // 8) % 2
+        src = 4 * (lanes % 8) + 2 * s
+        for it in range(items):
+            row = it * rows_item + lanes
+            live = (row < B) & (m < COL_TILES)
+            mt = it * COL_TILES + np.minimum(m, COL_TILES - 1)
+            v = pack_s8(last[mt, src + 1], last[mt, src], 0)
+            if pairs:
+                assert ((out_off + row * n_out)[live] % 2 == 0).all()
+            for e in range(n_out):
+                out[row[live], e] = (v[live] >> np.uint64(8 * e)) & np.uint64(0xFF)
+                np.add.at(stored, (row[live], e), 1)
+    else:
+        pairs = n_out % 2 == 0 and out_off % 2 == 0
+        for s in range(2):
+            for q4 in range(4):
+                if 8 * q4 >= n_out:
+                    break
+                c = np.broadcast_to((8 * q4 + 2 * T)[None, :], r.shape)
+                v = a[..., 2 * (q4 >> 1) + s] >> np.uint64(0 if q4 & 1 else 16)
+                if pairs:
+                    live = ok[..., s] & (c < n_out)
+                    assert ((out_off + rows[..., s] * n_out + c)[live] % 2 == 0).all()
+                for e in range(2):
+                    live = ok[..., s] & (c + e < n_out)
+                    out[rows[..., s][live], (c + e)[live]] = (v[live] >> np.uint64(8 * e)) & \
+                        np.uint64(0xFF)
+                    np.add.at(stored, (rows[..., s][live], (c + e)[live]), 1)
+    assert (stored == 1).all()
+    return out.astype(np.uint8).view(np.int8)
