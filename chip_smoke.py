@@ -113,6 +113,18 @@ line; any failure raises and the script exits non-zero:
    ``flat`` with ``MFT_FLAT_REQUANT`` exact2, fixed, fixed, exact2 at batch
    8192; then through ``fused``, ``hybrid`` and ``packed``, once each.
 
+7. train: ``person_detect_trainable(10)``, ``speech_trainable`` and
+   ``sine_trainable`` (also in ``gradient_mode="float"``), each as a trainer
+   on ``"pallas"`` and one on ``"xla"`` from the same params, 3 steps of
+   ``predict_quantized_train`` and ``update_layers`` at batch 256 on seeded
+   int8 inputs and targets: grads after every step and params after every
+   update bit-equal; each trained layer's count of nonzero gradient entries
+   (every layer must have some); a person_detect step launches 14 ``qgemm``
+   and 14 ``qdwconv`` through ``"pallas"`` and no kernel through ``"xla"``.
+   Then ms a train step and an ``update_layers`` of person_detect at batch
+   1024 through ``"pallas"`` and ``"xla"`` in turns, with the card's name
+   and power limit.
+
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  In the kernels line ``launches`` is the
 count from the kernel's main path in phase 4; ``ms``, ``plain_ms``,
@@ -185,8 +197,15 @@ from microflow_tpu_torch.kernels.qdwconv import (
 from microflow_tpu_torch.kernels.qdwconv import plan as qdwconv_plan
 from microflow_tpu_torch.kernels.qgemm import PATHS as QGEMM_PATHS
 from microflow_tpu_torch.kernels.qgemm import qgemm_path
-from microflow_tpu_torch.models import GOLDENS, model_path
+from microflow_tpu_torch.models import (
+    GOLDENS,
+    model_path,
+    person_detect_trainable,
+    sine_trainable,
+    speech_trainable,
+)
 from microflow_tpu_torch.ops.depthwise_conv_2d import window_sum
+from microflow_tpu_torch.train import TrainableModel
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # int8 tensor-core operations/s.
@@ -1496,6 +1515,95 @@ def timed(kern, ref, x, nbytes: int, ops: int, **extra) -> dict:
             "bytes": nbytes, "ops": ops, "library_ms": None}
 
 
+# --- training -----------------------------------------------------------------
+
+# (model, gradient_mode): the three bundled models' reference training
+# configurations, and sine's f32-gradient twin
+TRAIN_CASES = (("person_detect", "quantized"), ("speech", "quantized"), ("sine", "quantized"),
+               ("sine", "float"))
+TRAIN_LR = 0.05
+
+
+def trainer(name: str, backend: str, mode: str, dev) -> TrainableModel:
+    if name == "person_detect":
+        return person_detect_trainable(10, backend=backend, device=dev)
+    make = sine_trainable if name == "sine" else speech_trainable
+    return make(backend=backend, gradient_mode=mode, device=dev)
+
+
+def train_batch(model: TrainableModel, batch: int, gen: torch.Generator):
+    """Seeded int8 inputs and targets: one-hot labels on the softmax's grid
+    (127 / -128) for crossentropy, int8 values for mse."""
+    g = model.graph
+    xq = torch.randint(-128, 128, (batch, *g.input_shape), generator=gen, dtype=torch.int8)
+    if model.loss == "crossentropy":
+        gt = torch.full((batch, *g.output_shape), -128, dtype=torch.int8)
+        gt[torch.arange(batch), torch.randint(0, g.output_shape[-1], (batch,), generator=gen)] = 127
+    else:
+        gt = torch.randint(-128, 128, (batch, *g.output_shape), generator=gen, dtype=torch.int8)
+    return xq.to(model.device), gt.to(model.device)
+
+
+def _same_state(a: dict, b: dict, what: str) -> None:
+    for layer, arrays in a.items():
+        for k, v in arrays.items():
+            if not torch.equal(v, b[layer][k]):
+                raise AssertionError(f"{what}: {layer}/{k} differs between pallas and xla "
+                                     f"({int((v != b[layer][k]).sum())} entries)")
+
+
+def train_checks(dev, batch: int = 256, steps: int = 3) -> dict:
+    """For each of ``TRAIN_CASES``: a trainer on ``"pallas"`` and one on
+    ``"xla"`` from the same params, ``steps`` steps of
+    ``predict_quantized_train`` then ``update_layers`` on seeded batches;
+    grads after every step and params after every update must be
+    bit-equal.  Returns, a case, each trained layer's count of nonzero
+    weight-gradient entries after each step (every layer must have some in
+    one step at least) and the kernel launches of each backend's steps."""
+    out = {}
+    for name, mode in TRAIN_CASES:
+        mp, mx = (trainer(name, b, mode, dev) for b in ("pallas", "xla"))
+        mx.params = {k: {kk: v.clone() for kk, v in d.items()} for k, d in mp.params.items()}
+        gen = torch.Generator().manual_seed(15)
+        nonzero, launches = [], {}
+        for step in range(steps):
+            xq, gt = train_batch(mp, batch, gen)
+            for backend, m in (("pallas", mp), ("xla", mx)):
+                LAUNCHES.clear()
+                m.predict_quantized_train(xq, gt, TRAIN_LR)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                launches.setdefault(backend, []).append(dict(LAUNCHES))
+            _same_state(mp.grads, mx.grads, f"{name}/{mode} grads after step {step}")
+            nonzero.append({k: int(v["weights_gradient"].count_nonzero())
+                            for k, v in mp.grads.items()})
+            mp.update_layers(batch, TRAIN_LR)
+            mx.update_layers(batch, TRAIN_LR)
+            _same_state(mp.params, mx.params, f"{name}/{mode} params after update {step}")
+        dead = [k for k in nonzero[0] if not any(n[k] for n in nonzero)]
+        if dead:
+            raise AssertionError(f"{name}/{mode}: no gradient reached {dead} in {steps} steps")
+        out[f"{name}/{mode}"] = {"nonzero_weight_gradients": nonzero, "launches": launches}
+    return out
+
+
+def time_training(dev, smi: str, batch: int = 1024) -> dict:
+    """ms a train step (forward, backward and fold) and an
+    ``update_layers`` of person_detect at ``batch`` through ``"pallas"`` and
+    ``"xla"`` in turns (pallas, xla, xla, pallas), CUDA events around 5 of
+    each after 2 warm-up steps."""
+    models = {b: trainer("person_detect", b, "quantized", dev) for b in ("pallas", "xla")}
+    xq, gt = train_batch(models["pallas"], batch, torch.Generator().manual_seed(16))
+    runs = {b: {"step_ms": [], "update_ms": []} for b in models}
+    for backend in ("pallas", "xla", "xla", "pallas"):
+        m = models[backend]
+        runs[backend]["step_ms"].append(
+            time_ms(lambda: m.predict_quantized_train(xq, gt, TRAIN_LR), 5, warmup=2))
+        runs[backend]["update_ms"].append(
+            time_ms(lambda: m.update_layers(batch, TRAIN_LR), 5, warmup=2))
+    return {"model": "person_detect_trainable(10)", "batch": batch, "device": smi, **runs}
+
+
 # --- phases -------------------------------------------------------------------
 
 
@@ -1764,6 +1872,20 @@ def main() -> int:
     emit({"phase": "throughput", "order": "flat, pallas, pallas, flat; then person_detect's flat "
           "exact2, fixed, fixed, exact2; then fused, hybrid, packed",
           "device": smi, "clocks_power": nvidia_smi("clocks.sm,power.draw,power.limit"), **thr})
+    # 7. training: pallas against xla, bit for bit, then timed
+    t = time.time()
+    train = train_checks(dev)
+    pd_step = train["person_detect/quantized"]["launches"]
+    if any(n != PD_FORWARD for n in pd_step["pallas"]) or any(pd_step["xla"]):
+        raise AssertionError(f"person_detect train steps launched {pd_step}, expected "
+                             f"{PD_FORWARD} a step through pallas and nothing through xla")
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "batch": 256, "steps": 3, "lr": TRAIN_LR,
+          "tolerance": "bit-equal (pallas vs xla: grads after every step, params after "
+          "every update)", "cases": train,
+          "person_detect_step_launches": pd_step["pallas"][0],
+          "timing": time_training(dev, smi), "seconds": round(time.time() - t, 1)})
+    torch.cuda.empty_cache()
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
 
     per_kernel = {**timing, "flatpack": timing_whole["flatpack_person_detect"],

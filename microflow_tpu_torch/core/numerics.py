@@ -66,6 +66,32 @@ def saturating_cast(x: torch.Tensor, dtype) -> torch.Tensor:
     return torch.clamp(x, lo, hi).to(dtype)
 
 
+def saturating_add_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """i32 saturating add (reference ``accumulate_gradient_4D``,
+    ``src/update_layer.rs:289``): the exact sum in int64, clamped."""
+    lo, hi = _INT_INFO[torch.int32]
+    return torch.clamp(a.to(torch.int64) + b.to(torch.int64), lo, hi).to(torch.int32)
+
+
+def saturating_sub_int(a: torch.Tensor, b) -> torch.Tensor:
+    """Saturating subtract in ``a``'s own integer dtype (reference
+    ``Saturating::saturating_sub`` on i8)."""
+    lo, hi = _INT_INFO[a.dtype]
+    wide = a.to(torch.int64) - b
+    return torch.clamp(wide, lo, hi).to(a.dtype)
+
+
+def sat_cast_nan0(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Rust ``as`` from f32 to an integer type: saturating, NaN -> 0, on
+    integral values.  Clamped in float64, where both rails of int32 are
+    exact: torch's own f32 -> int32 conversion of 2**31 gives INT_MIN on
+    the CPU."""
+    dtype = torch_dtype(dtype)
+    lo, hi = _INT_INFO[dtype]
+    y = torch.clamp(x.to(torch.float64), lo, hi)
+    return torch.where(torch.isnan(y), 0.0, y).to(torch.int64).to(dtype)
+
+
 def f32(x: torch.Tensor) -> torch.Tensor:
     """Explicit float32 conversion (mirrors ``f32::from_subset``)."""
     return x.to(torch.float32)

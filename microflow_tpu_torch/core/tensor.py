@@ -76,17 +76,21 @@ class ViewGeometry:
             )
         return (self.stride_rows * i, self.stride_cols * j)
 
+    def valid_mask_plane(self) -> np.ndarray:
+        """Boolean [out_rows, out_cols, k_rows, k_cols]: which window
+        positions are in bounds (reference ``TensorView.mask``)."""
+        r0 = np.array([self.origin(i, 0)[0] for i in range(self.out_rows)])
+        c0 = np.array([self.origin(0, j)[1] for j in range(self.out_cols)])
+        rows = r0[:, None] + np.arange(self.k_rows)  # [OH, KH]
+        cols = c0[:, None] + np.arange(self.k_cols)  # [OW, KW]
+        ok_r = (rows >= 0) & (rows < self.in_rows)
+        ok_c = (cols >= 0) & (cols < self.in_cols)
+        return ok_r[:, None, :, None] & ok_c[None, :, None, :]
+
     def len_plane(self) -> np.ndarray:
         """int32 [out_rows, out_cols]: count of in-bounds window positions
         (reference ``TensorView.len``)."""
-        plane = np.zeros((self.out_rows, self.out_cols), np.int32)
-        for i in range(self.out_rows):
-            for j in range(self.out_cols):
-                r0, c0 = self.origin(i, j)
-                rows = min(r0 + self.k_rows, self.in_rows) - max(r0, 0)
-                cols = min(c0 + self.k_cols, self.in_cols) - max(c0, 0)
-                plane[i, j] = max(rows, 0) * max(cols, 0)
-        return plane
+        return self.valid_mask_plane().sum(axis=(2, 3)).astype(np.int32)
 
     def is_pointwise(self) -> bool:
         """A 1x1 stride-1 window with no padding: im2col is a reshape."""

@@ -8,6 +8,7 @@ import os
 import numpy as np
 
 from ..compiler.builder import CompiledModel, compile_tflite
+from ..train.trainer import TrainableModel, compile_tflite_train
 
 _MODELS_DIR = os.path.normpath(
     os.path.join(os.path.dirname(__file__), "..", "..", "models")
@@ -35,6 +36,27 @@ def person_detect(backend: str = "auto", device=None) -> CompiledModel:
     person / no-person)."""
     return compile_tflite(model_path("person_detect"), name="person_detect", backend=backend,
                           device=device)
+
+
+def sine_trainable(backend: str | None = None, gradient_mode: str = "quantized",
+                   device=None) -> TrainableModel:
+    """Reference ``examples/sine_train.rs`` configuration."""
+    return compile_tflite_train(model_path("sine"), 1, "mse", False, name="sine",
+                                backend=backend, gradient_mode=gradient_mode, device=device)
+
+
+def speech_trainable(backend: str | None = None, gradient_mode: str = "quantized",
+                     device=None) -> TrainableModel:
+    """Reference ``examples/speech_train.rs`` configuration."""
+    return compile_tflite_train(model_path("speech"), 2, "crossentropy", True, name="speech",
+                                backend=backend, gradient_mode=gradient_mode, device=device)
+
+
+def person_detect_trainable(num_train_layers: int = 10, backend: str | None = None,
+                            device=None) -> TrainableModel:
+    """Reference ``examples/person_detect_train.rs`` configuration."""
+    return compile_tflite_train(model_path("person_detect"), num_train_layers, "crossentropy",
+                                True, name="person_detect", backend=backend, device=device)
 
 
 GOLDENS = {

@@ -1,0 +1,315 @@
+"""TrainableModel: the generated-train-struct equivalent (reference T1,
+``microflow-train-macros/src/lib.rs:53-270``), as
+``microflow_tpu.train.trainer``.
+
+``TrainableModel(graph, num_train_layers, loss, skip_last_layer_train)``
+mirrors ``#[model(path, num_train_layers, loss, skip_last_layer_train)]``:
+the last ``num_train_layers`` operators form the trainable suffix (the
+frozen prefix runs plain inference); ``skip_last_layer_train`` excludes
+the final operator (typically SOFTMAX) from backward/update while the
+loss is computed on the tensor *before* it.
+
+API parity:
+
+* ``predict(x)`` / ``predict_quantized(x)``: inference;
+* ``predict_train(x, gt_q, lr)``: forward + backward, accumulates integer
+  gradients in ``grads`` (like the generated struct's
+  ``weightsN_gradient`` fields), returns the dequantized pre-loss output;
+* ``update_layers(batch_size, lr)``: clip-norm SGD on FC weights, plain
+  SGD on conv/dwconv weights, an f32 step on the folded bias C0, the
+  re-fold of FC's C2, the gradients zeroed.
+
+The forward runs the model's backend: ``"xla"`` (the default, as in the
+JAX package) or ``"pallas"``, the per-op kernels ``qgemm`` and
+``qdwconv`` on CUDA.  The backward and the update are plain torch on the
+model's device.  The whole-network backends bake the weights into their
+kernels' plans and so cannot train: asking for one raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..compiler.builder import (
+    CompiledModel,
+    apply_layer,
+    layer_constants,
+    params_from_numpy,
+    resolve_device,
+    select_backend,
+)
+from ..compiler.ir import (
+    AveragePool2DLayer,
+    Conv2DLayer,
+    DepthwiseConv2DLayer,
+    FullyConnectedLayer,
+    Graph,
+    ReshapeLayer,
+    SoftmaxLayer,
+)
+from ..core.numerics import const_f32, f32, torch_dtype
+from ..core.quantize import dequantize, quantize
+from ..core.tensor import reshape_2d
+from . import gradients, losses, optimizer
+
+# backends whose kernels read weights baked in at build (they refuse a
+# ``params`` swap, ``CompiledModel.params``)
+BAKED_BACKENDS = frozenset({"flat", "colfc", "fused", "hybrid", "packed"})
+
+
+def grads_from_numpy(grads: dict, device=None) -> dict:
+    """``{"layerN": {"weights_gradient", "c0_gradient"}}`` of numpy arrays
+    (or anything ``np.asarray`` takes, such as the JAX package's
+    ``TrainableModel.grads``) -> the same dict of tensors on ``device``."""
+    return params_from_numpy(grads, device)
+
+
+def grads_to_numpy(grads: dict) -> dict:
+    """The gradient state as numpy arrays on the host."""
+    return {layer: {k: v.cpu().numpy() for k, v in arrays.items()}
+            for layer, arrays in grads.items()}
+
+
+class TrainableModel(CompiledModel):
+    def __init__(
+        self,
+        graph: Graph,
+        num_train_layers: int,
+        loss: str = "mse",
+        skip_last_layer_train: bool = False,
+        backend: str | None = None,
+        gradient_mode: str = "quantized",
+        device=None,
+    ):
+        device = resolve_device(device)
+        resolved = select_backend(graph, backend or "xla", device.type)[0]
+        if resolved in BAKED_BACKENDS:
+            raise ValueError(
+                f"backend {resolved!r} bakes the weights into its kernel's plan and cannot "
+                "train; a TrainableModel runs 'xla' or 'pallas'")
+        super().__init__(graph, backend=resolved, device=device)
+        if loss not in ("mse", "crossentropy"):
+            raise NotImplementedError(f"loss {loss!r}")
+        self.loss = loss
+        n = len(graph.layers)
+        self.train_indices = [layer.index for layer in graph.layers[n - num_train_layers:]]
+        self.backward_indices = list(self.train_indices)
+        if skip_last_layer_train and self.backward_indices:
+            self.backward_indices = self.backward_indices[:-1]
+        # the loss reads the output of the last *backward* layer (lib.rs:209-215)
+        self.loss_index = self.backward_indices[-1] if self.backward_indices else None
+        # gradient_mode="float": the JAX package's end-to-end run of the
+        # reference's "unquantized" f32 gradient twins
+        # (gradient_fully_connected.rs:118-152, :198-232, :268-299), which
+        # exist for FC only
+        if gradient_mode not in ("quantized", "float"):
+            raise ValueError(f"gradient_mode {gradient_mode!r}")
+        self.gradient_mode = gradient_mode
+        if gradient_mode == "float":
+            for i in self.backward_indices:
+                if not isinstance(graph.layers[i],
+                                  (FullyConnectedLayer, ReshapeLayer, SoftmaxLayer)):
+                    raise NotImplementedError(
+                        "gradient_mode='float' covers FC suffixes only (the reference's "
+                        "unquantized twins exist only for FC, gradient_fully_connected.rs:"
+                        f"118-299); layer {i} is {type(graph.layers[i]).__name__}")
+        self._backward_layers = [graph.layers[i] for i in self.backward_indices]
+        # per-channel weight zero points of the conv layers, on the device once
+        self._wzp = {layer.index: layer_constants(layer, self.device)["wzp"]
+                     for layer in self._backward_layers
+                     if isinstance(layer, (Conv2DLayer, DepthwiseConv2DLayer))}
+        self.grads = self._init_grads()
+        # a host-side bound on the conv/dw accumulators' entries: they start
+        # at 0 and a step of B samples moves each by at most
+        # optimizer.fold_margin(B); while the bound plus a step's margin
+        # stays within i32, the saturating fold is the plain sum, with no
+        # device read.  None (grads assigned from outside) is read from the
+        # tensors at the next step.
+        self._fold_bound: int | None = 0
+
+    # --- gradient state (the generated struct's *_gradient fields) ---
+
+    @property
+    def grads(self) -> dict:
+        return self._grads
+
+    @grads.setter
+    def grads(self, grads: dict) -> None:
+        self._grads = grads
+        self._fold_bound = None
+
+    def _init_grads(self) -> dict:
+        grads = {}
+        for layer in self._backward_layers:
+            if isinstance(layer, FullyConnectedLayer):
+                wg_dtype = torch.float32 if self.gradient_mode == "float" else torch.int32
+                shape = layer.weights.shape
+            elif isinstance(layer, Conv2DLayer):
+                wg_dtype, shape = torch.int32, layer.filters.shape
+            elif isinstance(layer, DepthwiseConv2DLayer):
+                wg_dtype, shape = torch.int32, layer.weights.shape
+            else:
+                continue
+            grads[f"layer{layer.index}"] = {
+                "weights_gradient": torch.zeros(shape, dtype=wg_dtype, device=self.device),
+                "c0_gradient": torch.zeros(layer.c0.shape, dtype=torch.float32,
+                                           device=self.device)}
+        return grads
+
+    def _accumulator_bound(self) -> int:
+        """The largest |entry| of the conv/dw weight-gradient accumulators
+        (a device read)."""
+        bound = 0
+        for layer in self._backward_layers:
+            if isinstance(layer, (Conv2DLayer, DepthwiseConv2DLayer)):
+                acc = self._grads[f"layer{layer.index}"]["weights_gradient"]
+                bound = max(bound, int(acc.to(torch.int64).abs().max()))
+        return bound
+
+    # --- the training step ---
+
+    def _train_step(self, xq: torch.Tensor, gt_q: torch.Tensor, bound: int) -> torch.Tensor:
+        graph, params = self.graph, self.params
+        # forward, saving (input, output) of every backward layer
+        acts = {}
+        keep = set(self.backward_indices)
+        x = xq
+        for layer in graph.layers:
+            y = apply_layer(layer, params, x, self.backend, self._consts.get(layer.index))
+            if layer.index in keep:
+                acts[layer.index] = (x, y)
+            x = y
+        loss_layer = graph.layers[self.loss_index]
+        loss_out = acts[self.loss_index][1]
+
+        # initial backward gradient from the loss (T9)
+        if self.loss == "mse":
+            g = losses.mse_grad(loss_out, gt_q)
+        else:
+            g = losses.crossentropy_grad(loss_out, graph.output_q.scale0, graph.output_q.zp0,
+                                         gt_q, in_scale=loss_layer.out_q.scale0)
+        if self.gradient_mode == "float":
+            # both losses' quantized gradients are deltas on the loss
+            # tensor's grid: its step size makes the exact f32 counterpart
+            g = const_f32(loss_layer.out_q.scale0, g.device) * f32(g)
+
+        # backward in reverse layer order (T1's token prepending)
+        grads = {k: dict(v) for k, v in self._grads.items()}
+        for layer in reversed(self._backward_layers):
+            key = f"layer{layer.index}"
+            lg = grads.get(key)
+            x_in, y_out = acts[layer.index]
+            if isinstance(layer, FullyConnectedLayer):
+                x2 = reshape_2d(x_in) if layer.flatten_input else x_in
+                if self.gradient_mode == "float":
+                    dW, bias_grad, g = gradients.fc_backward_float(
+                        layer, x2, y_out, params[key]["weights"], g)
+                    # plain f32 accumulation (the twin of accumulate_gradient_2D)
+                    lg["weights_gradient"] = lg["weights_gradient"] + dW
+                else:
+                    dW, bias_grad, g = gradients.fc_backward(
+                        layer, x2, y_out, params[key]["weights"], g)
+                    lg["weights_gradient"] = optimizer.accumulate_gradient_2d(
+                        dW, lg["weights_gradient"])
+                lg["c0_gradient"] = lg["c0_gradient"] + bias_grad
+                if layer.flatten_input:
+                    g = g.reshape(x_in.shape)
+            elif isinstance(layer, Conv2DLayer):
+                dW_b, _, g = gradients.conv_backward_sample(
+                    layer, x_in, y_out, params[key]["weights"], g, self._wzp[layer.index])
+                # per-sample saturating accumulation, in batch order; the
+                # conv bias update is disabled in the reference
+                # (gradient_conv_2d.rs:63 commented out)
+                lg["weights_gradient"] = optimizer.accumulate_gradient_4d_fold(
+                    dW_b, lg["weights_gradient"], bound)
+            elif isinstance(layer, DepthwiseConv2DLayer):
+                dW_b, bias_b, g = gradients.dwconv_backward_sample(
+                    layer, x_in, y_out, params[key]["weights"], g, self._wzp[layer.index])
+                lg["weights_gradient"] = optimizer.accumulate_gradient_4d_fold(
+                    dW_b, lg["weights_gradient"], bound)
+                lg["c0_gradient"] = lg["c0_gradient"] + gradients.exact_f32_sum(bias_b, 0)
+            elif isinstance(layer, AveragePool2DLayer):
+                g = gradients.avgpool_backward_sample(layer, y_out, g)
+            elif isinstance(layer, ReshapeLayer):
+                g = g.reshape(x_in.shape)  # T8: reshape the gradient
+            # softmax: forward-only even in train mode (T7)
+        self._grads = grads
+        return loss_out
+
+    def _update_step(self, batch_size: int, lr: float) -> None:
+        params = dict(self.params)
+        grads = dict(self._grads)
+        for layer in self._backward_layers:
+            key = f"layer{layer.index}"
+            if key not in grads:
+                continue
+            p, g = dict(params[key]), grads[key]
+            if isinstance(layer, FullyConnectedLayer):
+                if self.gradient_mode == "float":
+                    p["weights"] = optimizer.update_weights_2d_from_float(
+                        p["weights"], g["weights_gradient"], layer.w_q.scale0, batch_size, lr)
+                else:
+                    p["weights"] = optimizer.update_weights_clip_norm_2d(
+                        p["weights"], g["weights_gradient"], batch_size, lr)
+                p["c0"] = optimizer.update_weights_2d_float(
+                    p["c0"], g["c0_gradient"], batch_size, lr)
+                p["c2"] = optimizer.update_constants_fully_connected(p["weights"], layer.in_q.zp0)
+            else:
+                p["weights"] = optimizer.update_weights_4d(
+                    p["weights"], g["weights_gradient"], batch_size, lr)
+                p["c0"] = optimizer.update_weights_2d_float(
+                    p["c0"], g["c0_gradient"], batch_size, lr)
+            params[key] = p
+            grads[key] = {k: torch.zeros_like(v) for k, v in g.items()}
+        self.params = params
+        self._grads = grads
+
+    # --- public API (mirrors the generated train struct) ---
+
+    def predict_train(self, x, gt_q, learning_rate: float = 0.0) -> torch.Tensor:
+        """f32 input + quantized ground truth -> dequantized pre-loss
+        output.  Accumulates gradients on the object (like the generated
+        struct's mutable fields)."""
+        return self.predict_quantized_train(self.quantize_input(x), gt_q, learning_rate)
+
+    def predict_quantized_train(self, xq, gt_q, learning_rate: float = 0.0) -> torch.Tensor:
+        xq = self._input(xq, torch_dtype(self.graph.input_dtype))
+        gt_q = self._input(gt_q, torch_dtype(self.graph.output_dtype))
+        if self._fold_bound is None:
+            self._fold_bound = self._accumulator_bound()
+        loss_out = self._train_step(xq, gt_q, self._fold_bound)
+        # entries never pass |INT_MIN|
+        self._fold_bound = min(self._fold_bound + optimizer.fold_margin(xq.shape[0]), 2**31)
+        loss_layer = self.graph.layers[self.loss_index]
+        return dequantize(loss_out, loss_layer.out_q.scale0, loss_layer.out_q.zp0)
+
+    def update_layers(self, batch_size: int, learning_rate: float) -> None:
+        self._update_step(batch_size, learning_rate)
+        self._fold_bound = 0  # accumulators zeroed (update_ops semantics)
+
+    def quantize_target(self, y) -> torch.Tensor:
+        """Quantize a float target with the loss tensor's output params
+        (the examples do this by hand, ``sine_train.rs:41-46``)."""
+        layer = self.graph.layers[self.loss_index]
+        y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
+        return quantize(y, layer.out_q.scale0, layer.out_q.zp0,
+                        dtype=torch_dtype(self.graph.output_dtype))
+
+
+def compile_tflite_train(
+    path: str,
+    num_train_layers: int,
+    loss: str = "mse",
+    skip_last_layer_train: bool = False,
+    name: str | None = None,
+    backend: str | None = None,
+    gradient_mode: str = "quantized",
+    device=None,
+) -> TrainableModel:
+    """Front door mirroring ``#[model(path, n, loss, skip)]``, on ``device``
+    (default CUDA; raises if CUDA is absent)."""
+    from ..frontend.parser import parse
+
+    device = resolve_device(device)
+    return TrainableModel(parse(path, name=name), num_train_layers, loss, skip_last_layer_train,
+                          backend=backend, gradient_mode=gradient_mode, device=device)

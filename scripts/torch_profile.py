@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time goes in the torch port's person_detect forward on one
-CUDA card (an H100).
+"""Where the time goes in the torch port's person_detect forward, or
+train step, on one CUDA card (an H100).
 
     python3 scripts/torch_profile.py [--backend auto] [--batch 8192] [--iters 3] [--trace PATH]
+    python3 scripts/torch_profile.py --train [--backend xla|pallas] [--batch 1024]
 
 Runs ``predict_inner`` of ``microflow_tpu_torch`` (``--backend``: ``auto``,
 the default, is the flat whole-network kernel on CUDA; ``pallas`` the
@@ -12,8 +13,11 @@ packed-pipeline backends; ``xla`` the plain torch ops) under
 prints one JSON line:
 the wall time per forward, the device-busy share of it, device time per
 kernel name grouped into the port's kernels and PyTorch's own, and the
-top PyTorch operators by device time.  ``--trace`` also writes the
-Chrome trace.  Needs CUDA; fails without it.
+top PyTorch operators by device time.  ``--train`` times
+``predict_quantized_train`` of ``person_detect_trainable(10)`` instead (one
+train step: the forward, the backward and the fold; the keys still say
+"forward").  ``--trace`` also writes the Chrome trace.  Needs CUDA; fails
+without it.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from microflow_tpu_torch.models import person_detect  # noqa: E402
+from microflow_tpu_torch.models import person_detect, person_detect_trainable  # noqa: E402
 
 
 def main() -> int:
@@ -41,22 +45,36 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--trace", help="write the Chrome trace to this path")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a train step of person_detect_trainable(10)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile: CUDA is not available", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    m = person_detect(backend=args.backend)
     rng = np.random.default_rng(0)
     xq = torch.from_numpy(rng.integers(-128, 128, (args.batch, 96, 96, 1), dtype=np.int8)).cuda()
+    if args.train:
+        m = person_detect_trainable(10, backend=args.backend)
+        gt = torch.full((args.batch, 2), -128, dtype=torch.int8)
+        gt[torch.arange(args.batch), torch.from_numpy(rng.integers(0, 2, args.batch))] = 127
+        gt = gt.cuda()
+
+        def call():
+            m.predict_quantized_train(xq, gt, 0.05)
+    else:
+        m = person_detect(backend=args.backend)
+
+        def call():
+            m.predict_inner(xq)
     for _ in range(2):
-        m.predict_inner(xq)
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            m.predict_inner(xq)
+            call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
 
@@ -78,7 +96,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "model": "person_detect", "backend": m.backend, "batch": args.batch, "device": smi,
+        "model": "person_detect", "call": "train step" if args.train else "predict_inner",
+        "backend": m.backend, "batch": args.batch, "device": smi,
         "wall_ms_per_forward": wall_ms, "device_ms_per_forward": device_ms,
         "device_busy_share": device_ms / wall_ms,
         "port_kernels_ms_per_forward": sum(ours.values()),

@@ -344,3 +344,16 @@ def test_models_on_the_card(cuda, name):
         assert torch.equal(k.predict_inner(xq.to(cuda)), want_q), backend
         if backend in ("fused", "hybrid", "packed"):
             assert np.array_equal(k.predict(x).cpu().numpy(), want), backend
+
+
+@pytest.mark.cuda
+def test_training_pallas_matches_xla_on_the_card(cuda):
+    """chip_smoke.py's train phase, shorter: person_detect, speech and sine
+    (also in float mode) trained through ``"pallas"`` and ``"xla"`` from
+    the same params stay bit-equal, every trained layer gets a gradient,
+    and a person_detect step launches the per-op kernels through
+    ``"pallas"`` only."""
+    res = chip_smoke.train_checks(cuda, batch=256, steps=2)
+    pd = res["person_detect/quantized"]["launches"]
+    assert all(n == chip_smoke.PD_FORWARD for n in pd["pallas"]), pd
+    assert not any(pd["xla"]), pd

@@ -19,6 +19,7 @@ import microflow_tpu_torch.core.fixedpoint, microflow_tpu_torch.compiler.fixed_f
 import microflow_tpu_torch.kernels.flatpack, microflow_tpu_torch.kernels.colfc
 import microflow_tpu_torch.kernels.megakernel, microflow_tpu_torch.kernels.packed
 import microflow_tpu_torch.models, microflow_tpu_torch.ops, microflow_tpu_torch.frontend
+import microflow_tpu_torch.train, microflow_tpu_torch.train.trainer
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
