@@ -124,6 +124,24 @@ line; any failure raises and the script exits non-zero:
    Then ms a train step and an ``update_layers`` of person_detect at batch
    1024 through ``"pallas"`` and ``"xla"`` in turns, with the card's name
    and power limit.
+8. entry_points: ``bench_torch.py --batch 8192`` (its JSON line, the golden
+   passed, its ms per batch), ``python -m microflow_tpu_torch inspect`` of
+   person_detect, ``predict`` of sine (the golden ``0.41348344`` printed)
+   and ``expansion`` of person_detect (naming ``flat_kernel``), as
+   subprocesses; the real samples (``samples.load_features()``) through the
+   default backend, ``flat``: person_detect's and speech's pinned outputs
+   and labels, 4 ``flatpack`` launches and no other; the three models
+   exported and reparsed, equal ``predict_inner`` bits at batch 1024; the
+   CLI's ``train`` in process on person_detect (10 layers, crossentropy,
+   the softmax skipped, 1 epoch of the retarget demo at batch 256) through
+   its default ``pallas``, with ``--save`` and ``--export``: the export,
+   compiled with the default backend (``flat``), bit-equal on the training
+   inputs to the trained weights run per op with the C0s the export
+   quantized to integer biases, and its distance from the trained model
+   printed (the rounded C0s move an intermediate output across a rounding
+   edge now and then, and the layers after it carry that on: up to 2 LSB
+   at the softmax); the checkpoint loaded into a fresh ``pallas`` trainer
+   bit-equal to the trained model.
 
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  In the kernels line ``launches`` is the
@@ -1604,6 +1622,137 @@ def time_training(dev, smi: str, batch: int = 1024) -> dict:
     return {"model": "person_detect_trainable(10)", "batch": batch, "device": smi, **runs}
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the real samples' pinned outputs (tests/test_samples.py): feature -> (model,
+# label, {output index: value})
+SAMPLE_GOLDENS = {
+    "person_detect_person": ("person_detect", "person", {0: 0.26953125, 1: 0.73046875}),
+    "person_detect_no_person": ("person_detect", "no person", {0: 0.6171875, 1: 0.3828125}),
+    "speech_yes": ("speech", "yes", {2: 0.99609375}),
+    "speech_no": ("speech", "no", {3: 0.9453125}),
+}
+
+
+def run_entry(*argv) -> subprocess.CompletedProcess:
+    """``python <argv>`` from the checkout's root; a non-zero exit raises."""
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    out = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode:
+        raise AssertionError(f"{' '.join(argv)} exited {out.returncode}: {out.stderr[-3000:]}")
+    return out
+
+
+def entry_points(dev, rng) -> dict:
+    """bench_torch.py and three CLI commands as subprocesses; the real
+    samples through ``flat``; the bundled models exported and reparsed; the
+    CLI's ``train`` (in process) on person_detect, its export and its
+    checkpoint."""
+    import io
+    import tempfile
+
+    from microflow_tpu_torch import samples
+    from microflow_tpu_torch.__main__ import main as cli
+    from microflow_tpu_torch.utils import load_params
+
+    t = time.time()
+    res = {}
+    out = run_entry("bench_torch.py", "--batch", "8192")
+    bench = json.loads(out.stdout.strip().splitlines()[-1])
+    if bench.get("metric") != "person_detect_inferences_per_sec_per_chip" or not bench["value"] > 0:
+        raise AssertionError(f"bench_torch.py printed {bench}")
+    if "golden output bit-exact" not in out.stderr:
+        raise AssertionError(f"bench_torch.py checked no golden: {out.stderr}")
+    ms = re.search(r"batch=\d+: ([0-9.]+) ms/batch", out.stderr)
+    res["bench_torch"] = {"line": bench, "ms_per_batch": float(ms.group(1)),
+                          "stderr": out.stderr.strip().splitlines()}
+    out = run_entry("-m", "microflow_tpu_torch", "inspect", "models/person_detect.tflite")
+    if "layers: 31" not in out.stdout:
+        raise AssertionError(f"inspect printed {out.stdout}")
+    out = run_entry("-m", "microflow_tpu_torch", "predict", "models/sine.tflite", "--fill", "0.5")
+    if "0.41348344" not in out.stdout:
+        raise AssertionError(f"predict printed {out.stdout}, not the sine golden 0.41348344")
+    res["cli_predict_sine"] = out.stdout.strip()
+    out = run_entry("-m", "microflow_tpu_torch", "expansion", "models/person_detect.tflite")
+    if "flat_kernel<false> (csrc/flatpack.cu" not in out.stdout:
+        raise AssertionError(f"expansion names no flat_kernel: {out.stdout[-3000:]}")
+    res["cli_expansion_kernel_lines"] = [ln for ln in out.stdout.splitlines() if "csrc/" in ln]
+
+    feats = samples.load_features()
+    models = {name: compile_tflite(model_path(name), name=name) for name in ("person_detect",
+                                                                             "speech")}
+    LAUNCHES.clear()
+    res["samples"] = {}
+    for key, (name, label, want) in SAMPLE_GOLDENS.items():
+        got = models[name].predict_quantized(feats[key])[0].cpu().numpy()
+        labels = samples.PERSON_DETECT_LABELS if name == "person_detect" else samples.SPEECH_LABELS
+        if labels[int(np.argmax(got))] != label or any(
+                got[i] != np.float32(v) for i, v in want.items()):
+            raise AssertionError(f"{key}: {got} is not labelled {label!r} with {want}")
+        res["samples"][key] = {"backend": models[name].backend, "output": got.tolist(),
+                               "label": label}
+    res["samples_launches"] = dict(LAUNCHES)
+    if res["samples_launches"] != {"flatpack": 4}:
+        raise AssertionError(f"the samples launched {res['samples_launches']}, expected 4 "
+                             "flatpack launches and no other")
+
+    with tempfile.TemporaryDirectory() as d:
+        res["export_round_trip"] = {}
+        for name in MODELS:
+            m = compile_tflite(model_path(name), name=name)
+            path = os.path.join(d, f"{name}.tflite")
+            m.export(path)
+            m2 = compile_tflite(path, name=name)
+            xq = random_input(m, 1024, rng)
+            err = max_abs_err(m2.predict_inner(xq), m.predict_inner(xq))
+            res["export_round_trip"][name] = {"backend": m2.backend, "batch": 1024,
+                                              "max_abs_err": err}
+            if err or m2.backend != m.backend:
+                raise AssertionError(f"{name} exported and reparsed: {res['export_round_trip']}")
+
+        ck, tfl = os.path.join(d, "pd10.npz"), os.path.join(d, "pd10.tflite")
+        log = io.StringIO()
+        LAUNCHES.clear()
+        with contextlib.redirect_stdout(log):
+            trained, x = cli(["train", "models/person_detect.tflite", "--layers", "10", "--loss",
+                              "crossentropy", "--skip-last", "--epochs", "1", "--batch", "256",
+                              "--save", ck, "--export", tfl])
+        torch.cuda.synchronize()
+        train_launches = dict(LAUNCHES)
+        if trained.backend != "pallas" or set(train_launches) != {"qgemm", "qdwconv"}:
+            raise AssertionError(f"CLI train ran {trained.backend}, launched {train_launches}")
+        xq = trained.quantize_input(x)
+        want = trained.predict_inner(xq)
+        exported = compile_tflite(tfl, name="person_detect")
+        got = exported.predict_inner(xq)
+        diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+        # export quantizes each trained C0 to its integer bias: the trained
+        # weights with the exported C0s, per op, give the export's bits
+        grid = parse(tfl)
+        on_grid = compile_tflite(model_path("person_detect"), name="person_detect",
+                                 backend="pallas")
+        on_grid.params = {k: {**v, "c0": torch.as_tensor(grid.layers[int(k[5:])].c0, device=dev)}
+                          for k, v in trained.params.items()}
+        grid_err = max_abs_err(got, on_grid.predict_inner(xq))
+        fresh = person_detect_trainable(10, backend="pallas")
+        fresh.params = load_params(ck)
+        reload_err = max_abs_err(fresh.predict_inner(xq), want)
+        res["cli_train"] = {
+            "argv": "train models/person_detect.tflite --layers 10 --loss crossentropy "
+                    "--skip-last --epochs 1 --batch 256 --save --export",
+            "stdout": log.getvalue().strip().splitlines(), "backend": trained.backend,
+            "launches": train_launches, "exported_backend": exported.backend,
+            "exported_vs_trained_max_lsb": int(diff.max().item()),
+            "exported_vs_trained_outputs_differing": int((diff > 0).sum().item()),
+            "outputs": int(diff.numel()),
+            "exported_vs_trained_with_exported_c0_max_abs_err": grid_err,
+            "checkpoint_reload_max_abs_err": reload_err}
+        if exported.backend != "flat" or grid_err or reload_err:
+            raise AssertionError(f"CLI train's export or checkpoint: {res['cli_train']}")
+    res["seconds"] = round(time.time() - t, 1)
+    return res
+
+
 # --- phases -------------------------------------------------------------------
 
 
@@ -1885,6 +2034,9 @@ def main() -> int:
           "every update)", "cases": train,
           "person_detect_step_launches": pd_step["pallas"][0],
           "timing": time_training(dev, smi), "seconds": round(time.time() - t, 1)})
+    torch.cuda.empty_cache()
+    # 8. the user-facing entry points
+    emit({"phase": "entry_points", "device": smi, **entry_points(dev, rng)})
     torch.cuda.empty_cache()
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
 

@@ -64,7 +64,8 @@ Backends (the JAX package's names, so callers pass the same strings):
   speech) raises ``ValueError``.
 
 ``"auto"`` never picks ``"fused"``, ``"hybrid"`` or ``"packed"``, as in the
-JAX package.
+JAX package.  ``backend=None`` is ``default_backend()``: the environment's
+``MFT_BACKEND``, else ``"auto"``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -99,6 +100,16 @@ from .ir import (
 )
 
 BACKENDS = frozenset({"auto", "xla", "pallas", "flat", "colfc", "fused", "hybrid", "packed"})
+
+
+def default_backend() -> str:
+    """The backend that ``backend=None`` means: ``MFT_BACKEND`` if it is
+    set, else ``"auto"``."""
+    backend = os.environ.get("MFT_BACKEND", "auto")
+    if backend not in BACKENDS:
+        raise ValueError(f"MFT_BACKEND={backend!r} is not a known backend; "
+                         f"choose one of {sorted(BACKENDS)}")
+    return backend
 
 
 def resolve_device(device=None) -> torch.device:
@@ -346,13 +357,15 @@ def _check_int8(graph: Graph, backend: str) -> None:
             "tensors (use backend='xla')")
 
 
-def select_backend(graph: Graph, backend: str, device_type: str):
+def select_backend(graph: Graph, backend: str | None, device_type: str):
     """The backend a model of ``graph`` runs on a device of type
     ``device_type`` (``"cuda"`` or ``"cpu"``) when ``backend`` is asked
-    for, and its plan: the flat plan for ``"flat"``, the packed plan for
-    ``"packed"``, the hybrid split index for ``"hybrid"``: ``(backend,
-    plan)``.  Raises for a backend that is unknown or that cannot run the
-    graph.  Host work only."""
+    for (None: ``default_backend()``), and its plan: the flat plan for
+    ``"flat"``, the packed plan for ``"packed"``, the hybrid split index for
+    ``"hybrid"``: ``(backend, plan)``.  Raises for a backend that is unknown
+    or that cannot run the graph.  Host work only."""
+    if backend is None:
+        backend = default_backend()
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose one of {sorted(BACKENDS)}")
     from ..kernels.flatpack import plan_flat
@@ -393,7 +406,7 @@ class CompiledModel:
     """The built model: batched, eager, params as a dict of tensors on
     ``device``."""
 
-    def __init__(self, graph: Graph, backend: str = "auto", device=None):
+    def __init__(self, graph: Graph, backend: str | None = None, device=None):
         self.graph = graph
         self.device = resolve_device(device)
         self.backend, plan = select_backend(graph, backend, self.device.type)
@@ -508,12 +521,36 @@ class CompiledModel:
         """int [B, *input_shape] -> int [B, *output_shape]."""
         return self._forward(self._input(xq, torch_dtype(self.graph.input_dtype)))
 
+    def export(self, path: str | None = None) -> bytes:
+        """The model with its current params (a ``TrainableModel``'s trained
+        ones after ``update_layers``) as ``.tflite`` bytes
+        (``frontend/export.py``), written to ``path`` when given.  An
+        untrained model round-trips bit-exactly; a trained folded bias is
+        quantized to the nearest integer bias."""
+        from ..frontend.export import export_tflite
 
-def build(graph: Graph, backend: str = "auto", device=None) -> CompiledModel:
+        data = export_tflite(self.graph, self.params,
+                             description=f"microflow_tpu_torch export: {self.graph.name}")
+        if path:
+            with open(path, "wb") as f:
+                f.write(data)
+        return data
+
+    def expansion(self, batch_size: int = 1) -> str:
+        """What a forward of ``batch_size`` samples runs, without running it
+        (``compiler/expansion.py``): the layer table, the backend, and each
+        layer's or kernel op's shapes and the function that computes it on
+        the model's device."""
+        from .expansion import expansion
+
+        return expansion(self, batch_size)
+
+
+def build(graph: Graph, backend: str | None = None, device=None) -> CompiledModel:
     return CompiledModel(graph, backend=backend, device=device)
 
 
-def compile_tflite(path: str, name: str | None = None, backend: str = "auto",
+def compile_tflite(path: str, name: str | None = None, backend: str | None = None,
                    device=None) -> CompiledModel:
     """One-call front door: ``.tflite`` path -> compiled batched model on
     ``device`` (default CUDA; raises if CUDA is absent)."""

@@ -609,6 +609,16 @@ class FlatKernel:
             self.plan = torch.from_numpy(buf).to(device)
             self.smem_a, self.smem_b = split["smem_a"], split["smem_b"]
 
+    @property
+    def paths(self) -> list[str]:
+        """Each op's path in the kernel (``kernels/megakernel.py::op_path``),
+        from the plan's descriptors, without a card."""
+        from .megakernel import op_path
+
+        n = len(self.ops)
+        desc = pack_plan(self.ops, self.requant)[0][:n * NF * 4].view(np.int32).reshape(n, NF)
+        return [op_path(row, KINDS) for row in desc]
+
     def __call__(self, x2: torch.Tensor) -> torch.Tensor:
         if x2.device.type == "cpu":
             return flat_forward_reference(self.ops, x2, self.requant)

@@ -371,13 +371,13 @@ def pack_segment(segment: Segment) -> tuple[np.ndarray, int, int]:
     return plan.bytes(), smem_a, smem_b
 
 
-def op_path(desc) -> str:
+def op_path(desc, kinds: dict = KINDS) -> str:
     """The kernel's path for an op, from its descriptor: ``"dw3_s1"``,
     ``"dw3_s2"``, ``"dw3_stem"``, ``"dw_vec"`` or ``"dw"`` for a depthwise
     conv, ``"pw_mma"`` or ``"pw"`` for a 1x1 conv over a multiple of 4
     channels, else the op's kind (``"conv"``, ``"fc"``, ``"pool"``,
-    ``"quantize"``)."""
-    kind = {v: k for k, v in KINDS.items()}[int(desc[F_KIND])]
+    ``"quantize"``; the flat kernel's ``kinds`` have ``"softmax"``)."""
+    kind = {v: k for k, v in kinds.items()}[int(desc[F_KIND])]
     if kind == "dw":
         return DW3_PATHS.get(int(desc[F_DW3]), "dw_vec" if desc[F_VEC] else "dw")
     if kind == "pw" and desc[F_MMA]:

@@ -30,6 +30,7 @@ from .qgemm import requant_clip
 
 # the kernel's paths (csrc/qdwconv.cu)
 PATH_GENERAL, PATH_S1, PATH_S2, PATH_STEM = range(4)
+PATH_NAMES = ("general", "3x3/s1", "3x3/s2", "stem")
 THREADS = 256  # threads a block, at most
 MAX_TILE = 48 * 1024  # shared-memory bytes a block
 ITEMS_PER_THREAD = 3  # work items a tile aims to give each thread

@@ -19,19 +19,19 @@ def model_path(name: str) -> str:
     return os.path.join(_MODELS_DIR, f"{name}.tflite")
 
 
-def sine(backend: str = "auto", device=None) -> CompiledModel:
+def sine(backend: str | None = None, device=None) -> CompiledModel:
     """3x FullyConnected sine approximator (in [B,1] f32, out [B,1]).
     Golden: predict([[0.5]]) == [[0.41348344]]."""
     return compile_tflite(model_path("sine"), name="sine", backend=backend, device=device)
 
 
-def speech(backend: str = "auto", device=None) -> CompiledModel:
+def speech(backend: str | None = None, device=None) -> CompiledModel:
     """TinyConv keyword spotter (in [B,1960] f32 spectrogram features,
     out [B,4] probabilities: silence/unknown/yes/no)."""
     return compile_tflite(model_path("speech"), name="speech", backend=backend, device=device)
 
 
-def person_detect(backend: str = "auto", device=None) -> CompiledModel:
+def person_detect(backend: str | None = None, device=None) -> CompiledModel:
     """MobileNet-v1 0.25x person detector (in [B,96,96,1] f32, out [B,2]:
     person / no-person)."""
     return compile_tflite(model_path("person_detect"), name="person_detect", backend=backend,

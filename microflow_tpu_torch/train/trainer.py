@@ -118,14 +118,17 @@ class TrainableModel(CompiledModel):
         self._wzp = {layer.index: layer_constants(layer, self.device)["wzp"]
                      for layer in self._backward_layers
                      if isinstance(layer, (Conv2DLayer, DepthwiseConv2DLayer))}
-        self.grads = self._init_grads()
         # a host-side bound on the conv/dw accumulators' entries: they start
         # at 0 and a step of B samples moves each by at most
         # optimizer.fold_margin(B); while the bound plus a step's margin
         # stays within i32, the saturating fold is the plain sum, with no
-        # device read.  None (grads assigned from outside) is read from the
+        # device read.  The bound holds for the accumulator tensors it was
+        # set on, at their version counts then (``_fold_seen``); an
+        # accumulator replaced or changed in place since (``grads`` assigned,
+        # an entry of it replaced, or written to) has it read from the
         # tensors at the next step.
-        self._fold_bound: int | None = 0
+        self._grads = self._init_grads()
+        self._set_fold_bound(0)
 
     # --- gradient state (the generated struct's *_gradient fields) ---
 
@@ -137,6 +140,24 @@ class TrainableModel(CompiledModel):
     def grads(self, grads: dict) -> None:
         self._grads = grads
         self._fold_bound = None
+
+    def _accumulators(self) -> list[torch.Tensor]:
+        """The conv/dw weight-gradient accumulators, which the fold's bound
+        covers."""
+        return [self._grads[f"layer{layer.index}"]["weights_gradient"]
+                for layer in self._backward_layers
+                if isinstance(layer, (Conv2DLayer, DepthwiseConv2DLayer))]
+
+    def _set_fold_bound(self, bound: int) -> None:
+        self._fold_bound = bound
+        self._fold_seen = [(acc, acc._version) for acc in self._accumulators()]
+
+    def _fold_bound_holds(self) -> bool:
+        """Whether ``_fold_bound`` was set on the accumulators as they are
+        now: the same tensors, none written to since."""
+        return self._fold_bound is not None and all(
+            acc is seen and acc._version == version
+            for acc, (seen, version) in zip(self._accumulators(), self._fold_seen))
 
     def _init_grads(self) -> dict:
         grads = {}
@@ -275,17 +296,16 @@ class TrainableModel(CompiledModel):
     def predict_quantized_train(self, xq, gt_q, learning_rate: float = 0.0) -> torch.Tensor:
         xq = self._input(xq, torch_dtype(self.graph.input_dtype))
         gt_q = self._input(gt_q, torch_dtype(self.graph.output_dtype))
-        if self._fold_bound is None:
-            self._fold_bound = self._accumulator_bound()
-        loss_out = self._train_step(xq, gt_q, self._fold_bound)
+        bound = self._fold_bound if self._fold_bound_holds() else self._accumulator_bound()
+        loss_out = self._train_step(xq, gt_q, bound)
         # entries never pass |INT_MIN|
-        self._fold_bound = min(self._fold_bound + optimizer.fold_margin(xq.shape[0]), 2**31)
+        self._set_fold_bound(min(bound + optimizer.fold_margin(xq.shape[0]), 2**31))
         loss_layer = self.graph.layers[self.loss_index]
         return dequantize(loss_out, loss_layer.out_q.scale0, loss_layer.out_q.zp0)
 
     def update_layers(self, batch_size: int, learning_rate: float) -> None:
         self._update_step(batch_size, learning_rate)
-        self._fold_bound = 0  # accumulators zeroed (update_ops semantics)
+        self._set_fold_bound(0)  # accumulators zeroed (update_ops semantics)
 
     def quantize_target(self, y) -> torch.Tensor:
         """Quantize a float target with the loss tensor's output params

@@ -326,10 +326,13 @@ def test_packed_refuses_a_plan_its_reads_do_not_fit(cuda, field, value):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["sine", "speech", "person_detect"])
-def test_models_on_the_card(cuda, name):
+def test_models_on_the_card(cuda, name, monkeypatch):
     """Goldens through the default backend (the flat kernel for the conv
     graphs, the per-op kernels for sine), and every kernel backend
-    bit-equal to the plain backend on random inputs."""
+    bit-equal to the plain backend on random inputs.  The default is
+    ``MFT_BACKEND``, which ``tests/conftest.py`` sets to ``xla`` for the
+    JAX package's tests: unset here, it is ``auto``."""
+    monkeypatch.delenv("MFT_BACKEND", raising=False)
     x, want = GOLDENS[name]
     m = compile_tflite(model_path(name))
     assert m.backend == ("pallas" if name == "sine" else "flat")
@@ -357,3 +360,22 @@ def test_training_pallas_matches_xla_on_the_card(cuda):
     pd = res["person_detect/quantized"]["launches"]
     assert all(n == chip_smoke.PD_FORWARD for n in pd["pallas"]), pd
     assert not any(pd["xla"]), pd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sine", "speech", "person_detect"])
+def test_export_round_trip_on_the_card(cuda, name, tmp_path, monkeypatch):
+    """A model exported and reparsed runs the same backend (``auto``'s) and
+    computes the same bits on the card (chip_smoke.py phase 8 at batch
+    1024)."""
+    monkeypatch.delenv("MFT_BACKEND", raising=False)
+    m = compile_tflite(model_path(name), name=name)
+    assert m.backend == ("pallas" if name == "sine" else "flat")
+    path = str(tmp_path / f"{name}.tflite")
+    m.export(path)
+    m2 = compile_tflite(path, name=name)
+    assert m2.backend == m.backend
+    gen = torch.Generator().manual_seed(0)
+    xq = torch.randint(-128, 128, (256, *m.graph.input_shape), generator=gen,
+                       dtype=torch.int8).to(cuda)
+    assert torch.equal(m.predict_inner(xq), m2.predict_inner(xq))

@@ -1,6 +1,7 @@
-"""The torch port stands alone: importing it, or ``chip_smoke.py``, loads
-neither JAX nor any module of ``microflow_tpu``; and without CUDA the
-port's default device raises instead of carrying on on the CPU."""
+"""The torch port stands alone: importing it, ``chip_smoke.py`` or
+``bench_torch.py`` loads neither JAX nor any module of ``microflow_tpu``;
+and without CUDA the port's default device raises instead of carrying on on
+the CPU."""
 
 import os
 import subprocess
@@ -20,7 +21,10 @@ import microflow_tpu_torch.kernels.flatpack, microflow_tpu_torch.kernels.colfc
 import microflow_tpu_torch.kernels.megakernel, microflow_tpu_torch.kernels.packed
 import microflow_tpu_torch.models, microflow_tpu_torch.ops, microflow_tpu_torch.frontend
 import microflow_tpu_torch.train, microflow_tpu_torch.train.trainer
-import chip_smoke
+import microflow_tpu_torch.__main__, microflow_tpu_torch.utils, microflow_tpu_torch.samples
+import microflow_tpu_torch.models.synth, microflow_tpu_torch.frontend.export
+import microflow_tpu_torch.compiler.expansion
+import chip_smoke, bench_torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
              or m == "microflow_tpu" or m.startswith("microflow_tpu."))
