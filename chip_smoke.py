@@ -142,6 +142,25 @@ line; any failure raises and the script exits non-zero:
    edge now and then, and the layers after it carry that on: up to 2 LSB
    at the softmax); the checkpoint loaded into a fresh ``pallas`` trainer
    bit-equal to the trained model.
+9. serve: the native front end (``parse(frontend="native")`` equal to
+   ``"python"`` in every field on the three models; the reader
+   ``compile_tflite`` used, printed); person_detect through a
+   ``BatchServer`` on the default backend (``flat``) and mesh (the card),
+   ``max_batch`` 1024, after ``warm(64)`` and ``warm(1024)``: 16 client
+   threads of 8 requests of 1-300 rows (host f32 through ``submit``, host
+   int8 and int8 already on the card through ``submit_quantized``) and one
+   of 1500 rows; every result bit-equal to ``predict_inner`` on its rows,
+   dequantized; the golden through the server; one ``flatpack`` launch a
+   dispatched batch and no other kernel; the counters account for every
+   request, inference and pad row (each forward's batch a power of two up
+   to 1024).  The same load again with every request on the card; sine
+   through ``pallas`` (4 clients, 3 ``qgemm`` launches a batch).  A second
+   process, with ``CUDA_HOME=/nonexistent``, warms a server and serves the
+   person_detect golden without building: every library under
+   ``build/torch_ext/`` and ``build/native/`` keeps its mtime.  Printed,
+   not gated: each load's inferences/s beside ``predict_inner``'s at batch
+   1024 (CUDA events, as in phase 6), ``batches_dispatched``,
+   ``rows_padded``, ``busy_seconds``, the card's name and power limit.
 
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  In the kernels line ``launches`` is the
@@ -158,6 +177,7 @@ those five kernels have no ``library_ms``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -1753,6 +1773,284 @@ def entry_points(dev, rng) -> dict:
     return res
 
 
+# --- serving (phase 9) ---------------------------------------------------------
+
+
+def same_graph(a, b, path: str = "graph") -> None:
+    """Raise unless two parsed graphs agree in every field, bit for bit."""
+    if dataclasses.is_dataclass(a):
+        if type(a) is not type(b):
+            raise AssertionError(f"{path}: {type(a).__name__} != {type(b).__name__}")
+        for f in dataclasses.fields(a):
+            same_graph(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
+    elif isinstance(a, np.ndarray):
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{path}: arrays differ")
+    elif isinstance(a, (list, tuple)):
+        if type(a) is not type(b) or len(a) != len(b):
+            raise AssertionError(f"{path}: {a!r} != {b!r}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_graph(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.generic):
+        if type(a) is not type(b) or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{path}: {a!r} != {b!r}")
+    elif type(a) is not type(b) or a != b:
+        raise AssertionError(f"{path}: {a!r} != {b!r}")
+
+
+def front_end_checks() -> dict:
+    """The native parser against the Python one on the three models, and
+    which reader ``compile_tflite`` used."""
+    from microflow_tpu_torch import native
+    from microflow_tpu_torch.frontend import native_backend
+
+    if not native.available():
+        raise AssertionError(f"the native front end does not build: {native._build_error}")
+    for name in MODELS:
+        same_graph(parse(model_path(name), frontend="native"),
+                   parse(model_path(name), frontend="python"), name)
+    loaded = []
+    orig = native_backend.load_model
+
+    def load(path):
+        model = orig(path)
+        loaded.append(path)
+        return model
+
+    native_backend.load_model = load
+    try:
+        compile_tflite(model_path("person_detect"), name="person_detect")
+    finally:
+        native_backend.load_model = orig
+    return {"native_available": True, "native_equals_python": list(MODELS),
+            "compile_tflite_frontend": "native" if loaded else "python",
+            "library": native.build()}
+
+
+SERVE_CLIENTS = 16
+SERVE_PER_CLIENT = 8
+SERVE_MAX_BATCH = 1024
+SERVE_BIG = 1500  # one request over max_batch
+
+
+SERVE_KINDS = ("f32", "int8_host", "int8_device")
+
+
+def serve_requests(model, rng, dev, clients: int, per_client: int, big: int | None,
+                   kinds=SERVE_KINDS) -> list:
+    """Each client's requests, ``(kind, x)``: 1-300 rows each, the kinds in
+    turn: host f32 (for ``submit``), host int8 and int8 already on the
+    card (for ``submit_quantized``); the first client's first request has
+    ``big`` rows when given."""
+    g = model.graph
+    out = []
+    for c in range(clients):
+        reqs = []
+        for k in range(per_client):
+            n = big if big and c == 0 and k == 0 else int(rng.integers(1, 301))
+            kind = kinds[(c + k) % len(kinds)]
+            if kind == "f32":
+                x = rng.uniform(0, 1, (n, *g.input_shape)).astype(np.float32)
+            else:
+                x = rng.integers(-128, 128, (n, *g.input_shape), dtype=np.int8)
+                if kind == "int8_device":
+                    x = torch.from_numpy(x).to(dev)
+            reqs.append((kind, x))
+        out.append(reqs)
+    return out
+
+
+def serve_load(server, requests: list) -> tuple[list, float]:
+    """One thread a client, each submitting its requests back to back and
+    then waiting for them; returns ``[(kind, x, result)]`` and the wall
+    seconds from the first submission to the last result."""
+    import threading
+
+    results = [[] for _ in requests]
+    errors = []
+
+    def client(i):
+        try:
+            futs = [server.submit(x) if kind == "f32" else server.submit_quantized(x)
+                    for kind, x in requests[i]]
+            results[i] = [(kind, x, f.result(timeout=300))
+                          for (kind, x), f in zip(requests[i], futs)]
+        except Exception as e:  # surfaced below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(requests))]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"a client failed: {errors}")
+    return [r for rs in results for r in rs], wall
+
+
+def drained(server, n_requests: int) -> dict:
+    """The server's counters once every request is accounted for (the
+    worker counts a batch just after it resolves its futures)."""
+    for _ in range(600):
+        st = server.stats()
+        if st["requests_completed"] + st["requests_failed"] >= n_requests:
+            return st
+        time.sleep(0.01)
+    raise AssertionError(f"the server did not account for {n_requests} requests: {st}")
+
+
+def serve_model(name: str, rng, dev, clients: int, per_client: int, big: int | None,
+                warm: tuple, per_batch: dict, kinds=SERVE_KINDS) -> dict:
+    """``name`` through a ``BatchServer`` on the default backend and mesh:
+    warm, load, counters and launches, every result against
+    ``predict_inner`` on its rows, the golden through the server."""
+    from microflow_tpu_torch.core.quantize import dequantize
+    from microflow_tpu_torch.parallel import BatchServer
+
+    model = compile_tflite(model_path(name), name=name)
+    forwards = []  # the batch of every forward the replica runs
+    forward = model._forward
+
+    def counted(xq):
+        forwards.append(xq.shape[0])
+        return forward(xq)
+
+    model._forward = counted
+    server = BatchServer(model, max_batch=SERVE_MAX_BATCH)
+    try:
+        t = time.perf_counter()
+        for bucket in warm:
+            server.warm(bucket)
+        warm_s = time.perf_counter() - t
+        requests = serve_requests(model, rng, dev, clients, per_client, big, kinds)
+        n_requests = sum(len(r) for r in requests)
+        torch.cuda.synchronize()
+        forwards.clear()
+        LAUNCHES.clear()
+        served, wall = serve_load(server, requests)
+        st = drained(server, n_requests)
+        torch.cuda.synchronize()
+        launches, batches = dict(LAUNCHES), list(forwards)
+        golden_out = server.submit(GOLDENS[name][0]).result(timeout=300)
+    finally:
+        server.stop()
+        model._forward = forward
+    if server._thread.is_alive():
+        raise AssertionError(f"{name}: the server's worker did not stop")
+    rows = sum(x.shape[0] for _, x, _ in served)
+    want_launches = {k: v * st["batches_dispatched"] for k, v in per_batch.items()}
+    buckets = sorted(set(batches))
+    accounts = {
+        "requests_submitted": n_requests, "requests_completed": n_requests,
+        "requests_failed": 0, "inferences_completed": rows,
+        "batches_dispatched": len(batches), "rows_padded": sum(batches) - rows,
+        "queue_depth": 0}
+    bad = {k: (st[k], v) for k, v in accounts.items() if st[k] != v}
+    if bad or launches != want_launches or any(b & (b - 1) or b > SERVE_MAX_BATCH
+                                               for b in buckets):
+        raise AssertionError(f"{name}: stats {st} (off: {bad}), launches {launches} (expected "
+                             f"{want_launches}), forward batches {buckets}")
+    g = model.graph
+    worst = 0
+    for kind, x, got in served:
+        xq = model.quantize_input(x) if kind == "f32" else torch.as_tensor(x).to(dev)
+        want = dequantize(model.predict_inner(xq), g.output_q.scale0, g.output_q.zp0).cpu()
+        if got.device.type != "cpu" or got.dtype != torch.float32 or got.shape != want.shape:
+            raise AssertionError(f"{name}: a {kind} request of {x.shape[0]} rows came back "
+                                 f"{got.dtype} {tuple(got.shape)} on {got.device}")
+        worst = max(worst, max_abs_err(got, want))
+    gold = golden_out.numpy()
+    if worst or not np.array_equal(gold, GOLDENS[name][1]):
+        raise AssertionError(f"{name}: served outputs differ from predict_inner by {worst}; "
+                             f"golden {gold}")
+    return {"backend": model.backend, "mesh": server.mesh.shape, "max_batch": SERVE_MAX_BATCH,
+            "warm": list(warm), "warm_seconds": warm_s, "warmed": sorted(server._warmed),
+            "requests": n_requests, "kinds": {k: sum(kind == k for kind, _, _ in served)
+                                              for k in SERVE_KINDS},
+            "largest_request": max(x.shape[0] for _, x, _ in served), "rows": rows,
+            "stats": st, "launches": launches, "forward_batches": buckets,
+            "served_vs_predict_inner_max_abs_err": worst, "golden": gold.ravel().tolist(),
+            "wall_seconds": wall, "inferences_per_s": rows / wall}
+
+
+REBUILD_CHECK = r"""
+import json, sys
+from microflow_tpu_torch import compile_tflite, native
+from microflow_tpu_torch.models import GOLDENS, model_path
+from microflow_tpu_torch.parallel import BatchServer
+
+m = compile_tflite(model_path("person_detect"), name="person_detect")
+s = BatchServer(m, max_batch=1024)
+try:
+    s.warm(64)
+    got = s.submit(GOLDENS["person_detect"][0]).result(timeout=300)
+finally:
+    s.stop()
+print(json.dumps({"backend": m.backend, "native": native.available(),
+                  "golden": got.numpy().ravel().tolist(), "stats": s.stats()}))
+"""
+
+
+def libraries() -> dict:
+    """mtime of every built library under ``build/torch_ext/`` and
+    ``build/native/``."""
+    out = {}
+    for sub in ("torch_ext", "native"):
+        d = os.path.join(ROOT, "build", sub)
+        for f in sorted(os.listdir(d)):
+            if f.endswith(".so"):
+                out[f"{sub}/{f}"] = os.stat(os.path.join(d, f)).st_mtime_ns
+    return out
+
+
+def no_rebuild_check() -> dict:
+    """A second process serves person_detect with ``CUDA_HOME`` pointing
+    nowhere, so any ``nvcc`` call would fail; the libraries keep their
+    mtimes."""
+    before = libraries()
+    env = {**os.environ, "PYTHONPATH": ROOT, "CUDA_HOME": "/nonexistent"}
+    out = subprocess.run([sys.executable, "-c", REBUILD_CHECK], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise AssertionError(f"the second process exited {out.returncode}: {out.stderr[-3000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    after = libraries()
+    if (after != before or not line["native"] or line["backend"] != "flat"
+            or line["golden"] != GOLDENS["person_detect"][1].ravel().tolist()
+            or line["stats"]["requests_failed"]):
+        raise AssertionError(f"second process: {line}; libraries before {before}, after {after}")
+    return {"child": line, "libraries_unchanged": sorted(after)}
+
+
+def serve_checks(dev, rng, smi: str) -> dict:
+    """Phase 9: the native front end, person_detect and sine served through
+    ``BatchServer`` on the default backend, and a second process that
+    serves without building."""
+    t = time.time()
+    res = {"front_end": front_end_checks()}
+    pd = serve_model("person_detect", rng, dev, SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_BIG,
+                     warm=(64, SERVE_MAX_BATCH), per_batch={"flatpack": 1})
+    m = compile_tflite(model_path("person_detect"), name="person_detect")
+    xq = random_input(m, SERVE_MAX_BATCH, rng)
+    ms = time_ms(lambda: m.predict_inner(xq), 20, warmup=2)
+    pd["predict_inner_at_max_batch"] = {"batch": SERVE_MAX_BATCH, "ms_per_batch": ms,
+                                        "inferences_per_s": SERVE_MAX_BATCH / ms * 1e3}
+    res["person_detect"] = pd
+    # the same load with every request already on the card: no request
+    # bytes cross the host link inside the timed window
+    res["person_detect_device_requests"] = serve_model(
+        "person_detect", rng, dev, SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_BIG,
+        warm=(64, SERVE_MAX_BATCH), per_batch={"flatpack": 1}, kinds=("int8_device",))
+    res["sine"] = serve_model("sine", rng, dev, 4, SERVE_PER_CLIENT, None, warm=(64,),
+                              per_batch={"qgemm": 3})
+    res["second_process"] = no_rebuild_check()
+    res["device"] = smi
+    res["seconds"] = round(time.time() - t, 1)
+    return res
+
+
 # --- phases -------------------------------------------------------------------
 
 
@@ -2037,6 +2335,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 8. the user-facing entry points
     emit({"phase": "entry_points", "device": smi, **entry_points(dev, rng)})
+    torch.cuda.empty_cache()
+    # 9. serving, and the native front end
+    emit({"phase": "serve", **serve_checks(dev, rng, smi)})
     torch.cuda.empty_cache()
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
 

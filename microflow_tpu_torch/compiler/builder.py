@@ -443,13 +443,19 @@ class CompiledModel:
                         for layer in per_op_layers}
 
     @property
+    def baked(self) -> bool:
+        """Whether the backend baked the weights into its kernel's plan at
+        build, so that ``params`` cannot be swapped."""
+        return any(k is not None for k in (self._flat, self._colfc, self._packed,
+                                           self._fused_forward))
+
+    @property
     def params(self) -> dict:
         return self._params
 
     @params.setter
     def params(self, params: dict) -> None:
-        if any(k is not None for k in (self._flat, self._colfc, self._packed,
-                                       self._fused_forward)):
+        if self.baked:
             raise ValueError(
                 f"backend {self.backend!r} bakes the weights into its kernel's plan at "
                 "build; swap params on backend 'xla' or 'pallas', or build from a graph "

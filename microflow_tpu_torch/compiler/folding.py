@@ -10,8 +10,10 @@ Exact float32 reproductions of the reference preprocessors:
 All arithmetic is done in numpy float32 with the same association order as
 the Rust code so the folded constants are bit-identical.
 
-This is the numpy fold of ``microflow_tpu.compiler.folding``; the native
-C++ fold is not ported.
+Like the reference, the folding step is native: when the C++ library
+(``native/tflite_parser.cpp``, ``mf_fold_*``) loads, it does the work;
+the numpy versions below are the fallback and the oracle the native fold
+is tested against (``tests/test_torch_native.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,13 @@ F32 = np.float32
 I32 = np.int32
 
 
+def _native():
+    """The native module when its library loads, else None."""
+    from .. import native
+
+    return native if native.available() else None
+
+
 def _get(arr, i):
     """Reference ``.get(i).copied().unwrap_or(arr[0])`` pattern."""
     return arr[i] if i < len(arr) else arr[0]
@@ -34,6 +43,12 @@ def preprocess_fully_connected(
     weights: np.ndarray,
 ) -> tuple[np.ndarray, np.float32, np.ndarray, int]:
     """Returns (C0 [N] f32, C1 f32, C2 [N] i32, C3 i32)."""
+    nat = _native()
+    if nat is not None and weights.dtype == np.int8:
+        return nat.fold_fc(
+            in_q.scale0, in_q.zp0, w_q.scale0, w_q.zp0,
+            bias_q.scale0, bias_q.zp0, out_q.scale0, bias, weights,
+        )
     s = F32(bias_q.scale0) / F32(out_q.scale0)
     c0 = s * (bias.astype(np.int64) - bias_q.zp0).astype(F32)
     c1 = F32(in_q.scale0) * F32(w_q.scale0) / F32(out_q.scale0)
@@ -47,6 +62,12 @@ def preprocess_conv_2d(
     num_filters: int,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Returns (C0 [F] f32, C1 [Q] f32)."""
+    nat = _native()
+    if nat is not None:
+        return nat.fold_conv(
+            in_q.scale0, out_q.scale0, w_q.scale,
+            bias_q.scale, bias_q.zero_point, bias, num_filters,
+        )
     c0 = np.empty(num_filters, F32)
     for b in range(num_filters):
         bs = F32(_get(bias_q.scale, b))
@@ -68,6 +89,9 @@ def preprocess_depthwise_conv_2d(
 
 def preprocess_average_pool_2d(in_q: QuantInfo, out_q: QuantInfo) -> tuple[np.float32, np.float32]:
     """Returns (C0, C1) with C1 = out_zp - (in_s * in_zp) / out_s."""
+    nat = _native()
+    if nat is not None:
+        return nat.fold_avgpool(in_q.scale0, in_q.zp0, out_q.scale0, out_q.zp0)
     c0 = F32(in_q.scale0) / F32(out_q.scale0)
     c1 = F32(out_q.zp0) - (F32(in_q.scale0) * F32(in_q.zp0)) / F32(out_q.scale0)
     return F32(c0), F32(c1)

@@ -3,9 +3,10 @@
 The equivalent of the reference's proc-macro entry point
 (``microflow-macros/src/lib.rs:46-183``): reads subgraph 0, dispatches the
 supported builtin operators, decodes weight buffers, folds the
-requantization constants, and emits ``compiler.ir`` layer records.  This
-is the Python path of ``microflow_tpu.frontend.parser``; the native C++
-parser is not ported (ROADMAP.md, queue A).
+requantization constants, and emits ``compiler.ir`` layer records.  The
+port of ``microflow_tpu.frontend.parser``, with both of its readers: the
+native C++ parser (``native/``, through ``native_backend.py``) and the
+Python flatbuffer reader (``tflite.py``), its oracle.
 """
 
 from __future__ import annotations
@@ -63,19 +64,46 @@ def _per_sample(shape: list[int]) -> tuple:
     return tuple(shape[1:])
 
 
-def parse(path: str, name: str | None = None, frontend: str = "python") -> Graph:
-    """``frontend`` must be "python": the native C++ parser is not ported
-    (ROADMAP.md, queue A item 10)."""
-    if frontend != "python":
-        raise NotImplementedError(
-            f"frontend={frontend!r}: only the Python parser is ported; the "
-            "native C++ parser is still to port (see ROADMAP.md)")
-    model = tflite.load_model(path)
+FRONTENDS = ("auto", "native", "python")
+
+
+def _load(path: str, frontend: str):
+    """The model's flatbuffer through the reader ``frontend`` names."""
+    if frontend not in FRONTENDS:
+        raise ValueError(f"unknown frontend {frontend!r}; choose one of {FRONTENDS}")
+    if frontend == "python":
+        return tflite.load_model(path)
+    from . import native_backend
+
+    if frontend == "native":
+        return native_backend.load_model(path)  # raises with the build error
+    try:
+        return native_backend.load_model(path)
+    except (RuntimeError, ValueError):
+        # no library (g++ missing or failing), or the C++ reader refused the
+        # bytes: the Python reader decides, and its error is the one raised
+        return tflite.load_model(path)
+
+
+def parse(path: str, name: str | None = None, frontend: str = "auto") -> Graph:
+    """Parse and fold the ``.tflite`` model at ``path``.
+
+    ``frontend`` is ``"auto"`` (the default, as in the JAX package), the
+    native C++ parser with the Python reader as the fallback, where the
+    library cannot be built or refuses the bytes; ``"native"``, which
+    raises ``RuntimeError`` with the build error where there is no library;
+    or ``"python"``.  Both readers give the same graph, bit for bit.  The
+    fallback is the host front end's, as in the JAX package: the graph is
+    the same whichever reader made it, and no device or kernel is involved.
+    The fold (``compiler/folding.py``) takes the native ``mf_fold_*`` when
+    the library loads, whatever the reader.
+    """
+    model = _load(path, frontend)
     # Loud rejection of anything the engine would otherwise silently
     # mis-handle (reference aborts compilation the same way:
     # ``microflow-macros/src/lib.rs:134`` ``abort_call_site!``).  A parity
     # engine must never compile a model it cannot honor bit-exactly.
-    n_sg = len(model.subgraphs)
+    n_sg = getattr(model, "num_subgraphs", len(model.subgraphs))
     if n_sg != 1:
         raise NotImplementedError(
             f"model has {n_sg} subgraphs; only single-subgraph models are "

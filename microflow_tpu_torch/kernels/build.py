@@ -8,6 +8,11 @@ The library's file name carries a hash of its source, of every
 or shared header is rebuilt and an unchanged one is reused.  All sources
 build in parallel, one ``nvcc`` each.  Nothing here runs at import time:
 the CPU tests import this module on machines without ``nvcc``.
+
+Threads and processes may build at once (a serving thread and its
+caller, the test workers): each compiles to a temporary name that carries
+its process and thread ids and renames the result into place, and
+``library`` loads each kernel once a process, under a lock.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import hashlib
 import os
 import re
 import subprocess
+import threading
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_ROOT, "microflow_tpu_torch", "csrc")
@@ -47,6 +53,7 @@ SIGNATURES = {
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -91,7 +98,7 @@ def build_all(names=tuple(SIGNATURES)) -> dict[str, str]:
     for n, so in targets.items():
         if os.path.exists(so):
             continue
-        tmp = f"{so}.{os.getpid()}.tmp"
+        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                      text=True), tmp)
@@ -110,16 +117,21 @@ def build_all(names=tuple(SIGNATURES)) -> dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+    """The loaded library of kernel ``name``, built on first use; threads
+    that ask at once wait for one build."""
     lib = _LIBS.get(name)
-    if lib is None:
-        path = build_all((name,))[name]
-        lib = ctypes.CDLL(path)
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+    if lib is not None:  # every launch after the first: no lock
+        return lib
+    with _LIBS_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = build_all((name,))[name]
+            lib = ctypes.CDLL(path)
+            symbol, argtypes = SIGNATURES[name]
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _LIBS[name] = lib
     return lib
 
 

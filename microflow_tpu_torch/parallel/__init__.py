@@ -1,0 +1,27 @@
+"""Parallel execution layer: device mesh, placement helpers, batch-serving
+executor (the port of ``microflow_tpu.parallel``; ``batch_spec`` is the
+JAX package's ``batch_sharding`` as a partition spec)."""
+
+from .executor import BatchServer
+from .mesh import (
+    Mesh,
+    batch_spec,
+    make_mesh,
+    mesh_devices,
+    replicate_params,
+    shard_batch,
+    shard_params,
+    tp_spec,
+)
+
+__all__ = [
+    "BatchServer",
+    "Mesh",
+    "batch_spec",
+    "make_mesh",
+    "mesh_devices",
+    "replicate_params",
+    "shard_batch",
+    "shard_params",
+    "tp_spec",
+]

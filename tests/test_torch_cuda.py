@@ -379,3 +379,20 @@ def test_export_round_trip_on_the_card(cuda, name, tmp_path, monkeypatch):
     xq = torch.randint(-128, 128, (256, *m.graph.input_shape), generator=gen,
                        dtype=torch.int8).to(cuda)
     assert torch.equal(m.predict_inner(xq), m2.predict_inner(xq))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,per_batch", [("person_detect", {"flatpack": 1}),
+                                            ("sine", {"qgemm": 3})])
+def test_batch_server_on_the_card(cuda, name, per_batch, monkeypatch):
+    """chip_smoke.py's serve phase, shorter: 4 clients of mixed requests
+    (host f32, host int8, int8 on the card; one over ``max_batch`` for
+    person_detect) through ``BatchServer`` on the default backend: every
+    result bit-equal to ``predict_inner``, the golden through the server,
+    the counters and the launches a dispatched batch."""
+    monkeypatch.delenv("MFT_BACKEND", raising=False)
+    big = chip_smoke.SERVE_BIG if name == "person_detect" else None
+    res = chip_smoke.serve_model(name, np.random.default_rng(3), cuda, 4, 3, big, warm=(64,),
+                                 per_batch=per_batch)
+    assert res["served_vs_predict_inner_max_abs_err"] == 0
+    assert res["stats"]["requests_failed"] == 0

@@ -96,5 +96,7 @@ def test_rejects_non_tflite_and_native_frontend(tmp_path):
     path = _write(tmp_path, b"\x10\x00\x00\x00XXXX" + b"\x00" * 32)
     with pytest.raises(ValueError, match="not a TFLite model"):
         tparse(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tparse(os.path.join(MODELS, "sine.tflite"), frontend="native")
+    with pytest.raises(ValueError, match="invalid TFLite model"):
+        tparse(path, frontend="native")
+    with pytest.raises(ValueError, match="unknown frontend"):
+        tparse(os.path.join(MODELS, "sine.tflite"), frontend="bogus")

@@ -1,5 +1,6 @@
 """The torch port stands alone: importing it, ``chip_smoke.py`` or
-``bench_torch.py`` loads neither JAX nor any module of ``microflow_tpu``;
+``bench_torch.py``, parsing a model (natively) and serving a request loads
+neither JAX nor any module of ``microflow_tpu``;
 and without CUDA the port's default device raises instead of carrying on on
 the CPU."""
 
@@ -24,7 +25,17 @@ import microflow_tpu_torch.train, microflow_tpu_torch.train.trainer
 import microflow_tpu_torch.__main__, microflow_tpu_torch.utils, microflow_tpu_torch.samples
 import microflow_tpu_torch.models.synth, microflow_tpu_torch.frontend.export
 import microflow_tpu_torch.compiler.expansion
+import microflow_tpu_torch.parallel, microflow_tpu_torch.parallel.executor
+import microflow_tpu_torch.parallel.mesh, microflow_tpu_torch.native
+import microflow_tpu_torch.frontend.native_backend
 import chip_smoke, bench_torch
+# the lazy imports too: a native parse and fold, and a served request
+from microflow_tpu_torch.models import sine
+server = microflow_tpu_torch.parallel.BatchServer(sine(device="cpu"), max_batch=8)
+try:
+    server.submit([[0.5]]).result(timeout=60)
+finally:
+    server.stop()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
              or m == "microflow_tpu" or m.startswith("microflow_tpu."))
