@@ -55,12 +55,18 @@ line; any failure raises and the script exits non-zero:
    12 depthwise ops on the strips and 11 1x1 convs on ``mma.sync``, and
    how many outputs the plan's exact2 mutant would change); ``flatpack_fixed`` (the
    flat kernel with ``requant="fixed"``, the integer (M, S) epilogue, its
-   own instantiation ``flat_kernel<true>``) on person_detect (whole, 2 and
+   own instantiation ``flat_kernel<R_FIXED>``) on person_detect (whole, 2 and
    12 layers), speech and sine at batches 64, 3 and 0, on the conv graph,
    ``pw_edge_graph`` and ``dw_edge_graph``, and on three fixed-epilogue edge
    graphs (``fixed_edge_graph``: p exactly on +-(k + 0.5) and the ulps
    around it, both rails, q past +-2**24, with no activation, RELU and
-   RELU6, out_zp != 0; the phase prints what each met); ``flatpack``, ``colfc``
+   RELU6, out_zp != 0; the phase prints what each met); the flat kernel's
+   measurement-only ``raw`` and ``noround`` (``flat_kernel<R_RAW>``,
+   ``<R_NOROUND>``) on person_detect and speech at batches 1024, 3 and 0,
+   on the conv graph, ``pw_edge_graph`` and ``dw_edge_graph``, and on an
+   edge graph each (``raw_edge_graph``: accumulators outside int8;
+   ``noround_edge_graph``: y past both rails and outside a RELU6's bounds;
+   the phase prints what each met); ``flatpack``, ``colfc``
    and ``megakernel`` on two small FC graphs whose constants put the
    epilogue on the ``exact2`` corners (counted: the megakernel rounds half
    away there), on +-k.5 and the ulps around them, past both rails, and on
@@ -75,8 +81,9 @@ line; any failure raises and the script exits non-zero:
    all 8, made outside the timed call, first checked equal to the integer
    accumulators),
    ``flatpack`` on person_detect and speech at batch
-   8192 (person_detect: exact2, then ``flatpack_fixed`` on the same input,
-   then exact2 again), ``colfc`` on sine at batch 1,048,576, ``megakernel`` (person_detect's
+   8192 (person_detect: exact2, then ``flatpack_fixed``, ``raw`` and
+   ``noround`` on the same input, with exact2 again after the fixed and
+   after the last), ``colfc`` on sine at batch 1,048,576, ``megakernel`` (person_detect's
    fused segment) and ``packed`` (its prefix) at batch 8192, ``packed``
    beside the flat kernel in ``exact`` mode on the same 23 layers (the
    same plan; the two outputs checked equal), then again.  Last, sine at
@@ -100,7 +107,10 @@ line; any failure raises and the script exits non-zero:
    ``backend="auto"`` with ``MFT_FLAT_REQUANT=fixed`` (4 ``flatpack_fixed``
    launches, no other kernel; their distance from ``xla`` printed), then
    the JAX package's gate for that mode (``tests/test_flatpack.py``: its 8
-   random int8 samples within 2 LSB of ``xla``).
+   random int8 samples within 2 LSB of ``xla``); the 4 requests through
+   ``"auto"`` with ``MFT_FLAT_REQUANT=raw`` and ``=noround`` (4 launches of
+   the mode's instantiation each, no other kernel, finite outputs: not
+   exact by design).
 5. whole model: ``flat``, ``pallas``, ``fused``, ``hybrid``, (sine)
    ``colfc`` and (person_detect) ``packed`` bit-equal to the plain torch
    backend ``xla`` on random int8 inputs, batch 1024; ``flat`` with
@@ -162,16 +172,35 @@ line; any failure raises and the script exits non-zero:
    1024 (CUDA events, as in phase 6), ``batches_dispatched``,
    ``rows_padded``, ``busy_seconds``, the card's name and power limit.
 
+10. distributed: ``ShardedTrainer`` (``parallel/tp.py``) on speech through
+   ``"pallas"`` on ``[2, 2]`` and ``[1, 2]`` meshes of the one card (the
+   FC's weights and accumulator row-sharded over ``model``), 3 steps at
+   batch 256 and an update, bit-equal to the replicated ``"pallas"`` and
+   ``"xla"`` trainers in outputs, grads and params, one ``qdwconv`` launch
+   a cell a step; person_detect_trainable(10) on ``[4, 1]`` (data only)
+   with an accumulator at -2**31 + 10, so the serial saturating fold runs
+   on the gathered batch, bit-equal to one device and no entry wrapped;
+   the two-process tier (``scripts/torch_multiprocess_worker.py``), both
+   ranks on ``cuda:0`` under gloo (NCCL needs a card a rank: run only with
+   two cards, else printed as not run): ``train_tp`` through ``"pallas"``,
+   and one ``infer`` run of sine through ``"pallas"`` and person_detect
+   through ``"flat"`` at 2 x 4096 rows (one ``flatpack`` launch a rank);
+   each rank exits 0 within 300 s.  Printed, not gated: ms of the sharded speech
+   step at batch 1024 on ``[2, 2]`` against the replicated one, in turns,
+   with the card's name and power limit; the phase's seconds.
+
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  In the kernels line ``launches`` is the
 count from the kernel's main path in phase 4; ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are, for ``qgemm`` and ``qdwconv``, sums
 over their 14 launches in one person_detect forward at batch 8192 (per
-launch in the ``kernel_times`` line), for ``flatpack`` and
-``flatpack_fixed`` one person_detect forward at batch 8192, for ``colfc``
-one sine forward at batch 1,048,576, for ``megakernel`` and ``packed`` one
-launch on person_detect at batch 8192.  No single PyTorch call computes a whole network or a segment, so
-those five kernels have no ``library_ms``.
+launch in the ``kernel_times`` line), for ``flatpack``,
+``flatpack_fixed``, ``flatpack_raw`` and ``flatpack_noround`` one
+person_detect forward at batch 8192 (the last two launched on phase 4's
+``MFT_FLAT_REQUANT`` run, their only path), for ``colfc`` one sine
+forward at batch 1,048,576, for ``megakernel`` and ``packed`` one launch
+on person_detect at batch 8192.  No single PyTorch call computes a whole
+network or a segment, so those seven kernels have no ``library_ms``.
 """
 
 from __future__ import annotations
@@ -243,6 +272,7 @@ from microflow_tpu_torch.models import (
     speech_trainable,
 )
 from microflow_tpu_torch.ops.depthwise_conv_2d import window_sum
+from microflow_tpu_torch.parallel import ShardedTrainer, make_mesh
 from microflow_tpu_torch.train import TrainableModel
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
@@ -258,9 +288,14 @@ KERNEL_INFO = {
                 "replaces": "microflow_tpu/kernels/qdwconv.py:81"},
     "flatpack": {"source": "microflow_tpu_torch/csrc/flatpack.cu",
                  "replaces": "microflow_tpu/kernels/flatpack.py:662"},
-    # the flat kernel's requant="fixed" instantiation, flat_kernel<true>
+    # the flat kernel's requant="fixed" instantiation, flat_kernel<R_FIXED>
     "flatpack_fixed": {"source": "microflow_tpu_torch/csrc/flatpack.cu",
                        "replaces": "microflow_tpu/kernels/flatpack.py:809"},
+    # the measurement-only requant modes, flat_kernel<R_RAW> and <R_NOROUND>
+    "flatpack_raw": {"source": "microflow_tpu_torch/csrc/flatpack.cu",
+                     "replaces": "microflow_tpu/kernels/flatpack.py:784"},
+    "flatpack_noround": {"source": "microflow_tpu_torch/csrc/flatpack.cu",
+                         "replaces": "microflow_tpu/kernels/flatpack.py:789"},
     "colfc": {"source": "microflow_tpu_torch/csrc/colfc.cu",
               "replaces": "microflow_tpu/kernels/colfc.py:89"},
     "megakernel": {"source": "microflow_tpu_torch/csrc/megakernel.cu",
@@ -678,6 +713,43 @@ def edge_graphs(rng) -> tuple[list, int]:
     hit = fma_hits(x * w, b, np.full(m, c1_fixed), np_exact2)[:32]
     graphs.append(edge_graph("edge_fma", w[hit].tolist(), b[hit].tolist(), float(c1_fixed)))
     return graphs, len(hit)
+
+
+def noround_edge_graph() -> Graph:
+    """``noround`` at its edges (``edge_graph`` under RELU6, clip [0, 60] at
+    out_scale 0.1, c1 = 1): lane n computes y = bias0[n] + x * w[n]; as x
+    sweeps int8, lanes with w = 127 and -128 and with bias0 = +-200.75 pass
+    both int8 rails (noround saturates there), lanes with w = 1 run through
+    and past the RELU6 bounds, which noround does not apply, and the
+    bias0 of +-0.75, 0.25 and 59.5 put y on halves, which it truncates
+    toward zero."""
+    return edge_graph("noround_edge", [1, 1, 1, 1, 127, -128, 0, 0],
+                      [-0.75, 0.25, 59.5, 0.75, 0.0, 0.0, 200.75, -200.75], 1.0,
+                      FusedActivation.RELU6, 0.1)
+
+
+def raw_edge_graph() -> Graph:
+    """``raw`` at its edges (``edge_graph``): lane n's accumulator is x * w[n],
+    which for w in {127, -128, 64, 3} leaves int8 as x sweeps it; raw keeps
+    its low byte."""
+    return edge_graph("raw_edge", [1, 127, -128, 64, 3, -1, 0, 2], [0.5] * 8, 0.5)
+
+
+def mode_edge_counts(g: Graph, sweep: np.ndarray) -> dict:
+    """What an edge graph's second layer meets on inputs ``sweep``, over
+    (sample, lane): accumulators outside int8, and y = bias0 + c1 * acc past
+    an int8 rail, or truncated to a value outside the layer's activation
+    bounds within int8."""
+    layer = g.layers[1]
+    acc = sweep.astype(np.int64)[:, None] * layer.weights[0].astype(np.int64)[None, :]
+    y = np_epilogue(np.float32(layer.c1), acc.astype(np.float32),
+                    np.float32(layer.out_q.zp0) + layer.c0)[0]
+    lo, hi = activation_bounds(layer.activation, layer.out_q.scale0, layer.out_q.zp0)
+    t = np.trunc(y)
+    inside = (t >= -128) & (t <= 127)
+    return {"acc_outside_int8": int(((acc < -128) | (acc > 127)).sum()),
+            "y_past_rails": int((~inside).sum()),
+            "y_outside_activation_bounds": int((inside & ((t < lo) | (t > hi))).sum())}
 
 
 def fixed_target(p: float):
@@ -1105,7 +1177,8 @@ def whole_network_checks(dev, rng) -> dict:
     """``flatpack``, ``colfc``, ``megakernel`` and ``packed`` against their
     plain versions on the card: max |kernel - plain| per kernel and the
     number of checks."""
-    errs = {"flatpack": [], "flatpack_fixed": [], "colfc": [], "megakernel": [], "packed": []}
+    errs = {"flatpack": [], "flatpack_fixed": [], "flatpack_raw": [], "flatpack_noround": [],
+            "colfc": [], "megakernel": [], "packed": []}
     mma_ops, dw3_ops, mega_paths, packed_paths, packed_corners = {}, {}, {}, {}, {}
 
     def flat_check(g, label, batches, max_layers=None, requant="exact2"):
@@ -1175,7 +1248,7 @@ def whole_network_checks(dev, rng) -> dict:
         flat_check(cg, f"conv_graph[:{max_layers}]", (64, 3), max_layers)
     flat_check(pw_edge_graph(rng), "pw_edge_graph", (64, 3, 0))
     flat_check(dw_edge_graph(rng), "dw_edge_graph", (64, 3, 0))
-    # the fixed-point epilogue (flat_kernel<true>) on every op path
+    # the fixed-point epilogue (flat_kernel<R_FIXED>) on every op path
     for max_layers in (None, 2, 12):
         flat_check(pd, f"person_detect[:{max_layers}]", (64, 3, 0), max_layers, "fixed")
     for name in ("speech", "sine"):
@@ -1201,6 +1274,29 @@ def whole_network_checks(dev, rng) -> dict:
         fixed_edges[g.name] = fixed_edge_counts(flat_fn.ops[1], sweep)
         if not all(fixed_edges[g.name].values()):
             raise AssertionError(f"{g.name} misses an edge: {fixed_edges[g.name]}")
+    # the measurement-only modes: person_detect and speech at batch 1024, the
+    # graphs of the kernel's other paths, and an edge graph each (noround
+    # past both rails and outside a RELU6's bounds; raw's accumulators
+    # outside int8)
+    mode_edges = {}
+    for mode in ("raw", "noround"):
+        for name in ("person_detect", "speech"):
+            flat_check(parse(model_path(name)), name, (1024, 3, 0), requant=mode)
+        flat_check(cg, "conv_graph", (64, 3), requant=mode)
+        flat_check(pw_edge_graph(np.random.default_rng(0)), "pw_edge_graph", (64, 3),
+                   requant=mode)
+        flat_check(dw_edge_graph(np.random.default_rng(0)), "dw_edge_graph", (64, 3),
+                   requant=mode)
+        g = noround_edge_graph() if mode == "noround" else raw_edge_graph()
+        flat_fn, _, _ = build_flat_kernel(g, requant=mode, device=dev)
+        x = torch.from_numpy(sweep.reshape(-1, 1)).to(dev)
+        errs[flat_fn.launch_key].append({"case": g.name, "max_abs_err": max_abs_err(
+            flat_fn(x), flat_forward_reference(flat_fn.ops, x, mode))})
+        mode_edges[g.name] = mode_edge_counts(g, sweep)
+    if not (mode_edges["raw_edge"]["acc_outside_int8"]
+            and mode_edges["noround_edge"]["y_past_rails"]
+            and mode_edges["noround_edge"]["y_outside_activation_bounds"]):
+        raise AssertionError(f"an edge graph of raw/noround misses its edge: {mode_edges}")
     if mma_ops["person_detect[:None]"] != list(range(2, 27, 2)):
         raise AssertionError(f"person_detect's tensor-core 1x1 convs: "
                              f"{mma_ops['person_detect[:None]']}, expected layers 2-26")
@@ -1270,7 +1366,7 @@ def whole_network_checks(dev, rng) -> dict:
     if not corners["edge_c1_one"]:
         raise AssertionError("no lane of edge_c1_one on the exact2 corner")
     return {"checks": errs, "fma_sensitive_lanes": n_fma, "exact2_corner_lanes": corners,
-            "fixed_edge_counts": fixed_edges,
+            "fixed_edge_counts": fixed_edges, "mode_edge_counts": mode_edges,
             "mma_ops": {k: len(v) for k, v in mma_ops.items()},
             "dw3_ops": {k: len(v) for k, v in dw3_ops.items()},
             "mega_paths": {k: count_paths(v) for k, v in mega_paths.items()},
@@ -1458,6 +1554,15 @@ def time_whole_network(dev, rng) -> dict:
                 fixed_fn, lambda v: flat_forward_reference(fixed_fn.ops, v, "fixed"), x,
                 *flat_bound(fixed_fn.ops, 8192))
             res["flatpack_person_detect"]["ms_after_fixed"] = time_ms(lambda: flat_fn(x), 20)
+            # the measurement-only modes on the same input, then exact2 again:
+            # exact2 - noround prices the round and the clip, noround - raw
+            # the affine f32 epilogue (ROADMAP B speed item 1)
+            for mode in ("raw", "noround"):
+                fn, _, _ = build_flat_kernel(parse(model_path(name)), requant=mode, device=dev)
+                res[f"flatpack_{mode}_person_detect"] = timed(
+                    fn, lambda v, fn=fn, mode=mode: flat_forward_reference(fn.ops, v, mode), x,
+                    *flat_bound(fn.ops, 8192))
+            res["flatpack_person_detect"]["ms_after_modes"] = time_ms(lambda: flat_fn(x), 20)
         del x
         torch.cuda.empty_cache()
     col_fn, meta = build_col_kernel(parse(model_path("sine")), device=dev)
@@ -1586,7 +1691,7 @@ def _same_state(a: dict, b: dict, what: str) -> None:
     for layer, arrays in a.items():
         for k, v in arrays.items():
             if not torch.equal(v, b[layer][k]):
-                raise AssertionError(f"{what}: {layer}/{k} differs between pallas and xla "
+                raise AssertionError(f"{what}: {layer}/{k} differs "
                                      f"({int((v != b[layer][k]).sum())} entries)")
 
 
@@ -1612,12 +1717,13 @@ def train_checks(dev, batch: int = 256, steps: int = 3) -> dict:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 launches.setdefault(backend, []).append(dict(LAUNCHES))
-            _same_state(mp.grads, mx.grads, f"{name}/{mode} grads after step {step}")
+            _same_state(mp.grads, mx.grads, f"{name}/{mode} pallas vs xla, grads after step {step}")
             nonzero.append({k: int(v["weights_gradient"].count_nonzero())
                             for k, v in mp.grads.items()})
             mp.update_layers(batch, TRAIN_LR)
             mx.update_layers(batch, TRAIN_LR)
-            _same_state(mp.params, mx.params, f"{name}/{mode} params after update {step}")
+            _same_state(mp.params, mx.params,
+                        f"{name}/{mode} pallas vs xla, params after update {step}")
         dead = [k for k in nonzero[0] if not any(n[k] for n in nonzero)]
         if dead:
             raise AssertionError(f"{name}/{mode}: no gradient reached {dead} in {steps} steps")
@@ -1694,7 +1800,7 @@ def entry_points(dev, rng) -> dict:
         raise AssertionError(f"predict printed {out.stdout}, not the sine golden 0.41348344")
     res["cli_predict_sine"] = out.stdout.strip()
     out = run_entry("-m", "microflow_tpu_torch", "expansion", "models/person_detect.tflite")
-    if "flat_kernel<false> (csrc/flatpack.cu" not in out.stdout:
+    if "flat_kernel<R_EXACT2> (csrc/flatpack.cu" not in out.stdout:
         raise AssertionError(f"expansion names no flat_kernel: {out.stdout[-3000:]}")
     res["cli_expansion_kernel_lines"] = [ln for ln in out.stdout.splitlines() if "csrc/" in ln]
 
@@ -2054,6 +2160,174 @@ def serve_checks(dev, rng, smi: str) -> dict:
 # --- phases -------------------------------------------------------------------
 
 
+# --- the tensor-parallel step and the two-process tier (phase 10) -----------
+
+WORKER = os.path.join(ROOT, "scripts", "torch_multiprocess_worker.py")
+WORKER_TIMEOUT_S = 300
+
+
+def sharded_speech_checks(dev, batch: int = 256, steps: int = 3) -> dict:
+    """``ShardedTrainer`` on speech through ``"pallas"`` on meshes that
+    repeat the card (``[2, 2]``, ``[1, 2]``: the FC row-sharded over
+    ``model``): ``steps`` steps and an update beside a replicated
+    ``"pallas"`` and ``"xla"`` trainer; outputs, grads after every step and
+    params after the update bit-equal.  Returns each mesh's launches a
+    step (a ``qdwconv`` a cell: the depthwise layer; the sharded FC is the
+    plain integer product)."""
+    out = {}
+    for shape in ((2, 2), (1, 2)):
+        mesh = make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+        tr = ShardedTrainer(trainer("speech", "pallas", "quantized", dev), mesh)
+        if tr.params["layer2"]["weights"].spec != ("model", None):
+            raise AssertionError("speech's FC is not row-sharded")
+        mp, mx = (trainer("speech", b, "quantized", dev) for b in ("pallas", "xla"))
+        gen = torch.Generator().manual_seed(18)
+        launches, nonzero = [], []
+        for step in range(steps):
+            xq, gt = train_batch(mp, batch, gen)
+            LAUNCHES.clear()
+            y = tr.predict_quantized_train(xq, gt)
+            torch.cuda.synchronize(dev)
+            launches.append(dict(LAUNCHES))
+            for m in (mp, mx):
+                if not torch.equal(y, m.predict_quantized_train(xq, gt)):
+                    raise AssertionError(f"{shape}: the sharded output differs, step {step}")
+                _same_state(tr.gather()[1], m.grads, f"{shape} grads after step {step}")
+            nonzero.append(int(mp.grads["layer2"]["weights_gradient"].count_nonzero()))
+        if not nonzero[-1]:
+            raise AssertionError(f"{shape}: no gradient reached the sharded FC")
+        for m in (tr, mp, mx):
+            m.update_layers(batch, TRAIN_LR)
+        for m in (mp, mx):
+            _same_state(tr.gather()[0], m.params, f"{shape} params after the update")
+        want = {"qdwconv": shape[0] * shape[1]}
+        if any(n != want for n in launches):
+            raise AssertionError(f"{shape}: a sharded step launched {launches}, expected {want}")
+        out[f"{shape[0]}x{shape[1]}"] = {"launches_per_step": launches[0],
+                                         "nonzero_fc_gradient_after_each_step": nonzero}
+    return out
+
+
+def sharded_fold_check(dev, batch: int = 256) -> dict:
+    """person_detect_trainable(10) through ``"pallas"`` on a ``[4, 1]`` mesh
+    of the card (data only): a step, then with an accumulator at -2**31 +
+    10 a step on the serial saturating fold (the batch's gradients gathered
+    in order), and an update, bit-equal to one device."""
+    tr = ShardedTrainer(trainer("person_detect", "pallas", "quantized", dev),
+                        make_mesh(4, 1, devices=[dev] * 4))
+    one = trainer("person_detect", "pallas", "quantized", dev)
+    gen = torch.Generator().manual_seed(19)
+    key = next(k for k, v in one.grads.items() if v["weights_gradient"].dim() == 4)
+    bounds = []
+    for step in range(2):
+        if step == 1:
+            one.grads[key]["weights_gradient"].fill_(-2**31 + 10)
+            for c in tr.cells:
+                tr.grads[key]["weights_gradient"].shards[c].fill_(-2**31 + 10)
+        xq, gt = train_batch(one, batch, gen)
+        if not torch.equal(tr.predict_quantized_train(xq, gt),
+                           one.predict_quantized_train(xq, gt)):
+            raise AssertionError(f"person_detect [4, 1]: the output differs, step {step}")
+        bounds.append(tr._fold_bound)
+        _same_state(tr.gather()[1], one.grads, f"person_detect [4, 1] grads after step {step}")
+    positive = int((one.grads[key]["weights_gradient"] > 0).sum())
+    if bounds[1] != 2**31 or positive:
+        raise AssertionError(f"the serial fold did not run or wrapped: bounds {bounds}, "
+                             f"{positive} positive entries")
+    tr.update_layers(batch, TRAIN_LR)
+    one.update_layers(batch, TRAIN_LR)
+    _same_state(tr.gather()[0], one.params, "person_detect [4, 1] params after the update")
+    return {"layer": key, "fold_bounds": bounds, "positive_entries_after_serial_fold": positive}
+
+
+def run_workers(mode: str, backend: str, *extra) -> list[dict]:
+    """Both ranks of ``scripts/torch_multiprocess_worker.py`` on the card
+    (rank i on ``cuda:<i % count>``), started together, rendezvous in a
+    fresh file under ``build/``; each must exit 0 within
+    ``WORKER_TIMEOUT_S`` and print ``proc <i>: OK``.  Returns their JSON
+    lines."""
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="rdv", dir=os.path.join(ROOT, "build"))
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    procs = [subprocess.Popen(
+        [sys.executable, WORKER, f"file://{tmp}/rdv", "2", str(i), mode, "--device", "cuda",
+         "--backend", backend, *extra], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"{mode}/{backend}: a rank ran past {WORKER_TIMEOUT_S} s")
+    lines = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"proc {i}: OK" not in out:
+            raise AssertionError(f"{mode}/{backend} rank {i} failed ({p.returncode}):\n"
+                                 f"{out[-3000:]}")
+        lines.append(json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1]))
+    return lines
+
+
+def two_process_checks() -> dict:
+    """The two-process tier on the card, both ranks on ``cuda:0`` under
+    gloo: ``train_tp`` (speech through ``"pallas"``), and one ``infer`` run
+    (a start-up and rendezvous for both models) of sine through
+    ``"pallas"`` and person_detect through ``"flat"`` at 2 x 4096 rows (one
+    ``flatpack`` launch a rank and local chunk); NCCL too, a card a rank,
+    where there are two cards."""
+    res = {}
+    runs = [("gloo", "train_tp", ("--model-backend", "pallas"), {"qdwconv": 4}),
+            ("gloo", "infer", ("--model", "sine", "person_detect", "--model-backend", "pallas",
+                               "flat", "--rows", "32", "8192"),
+             {"sine": {"qgemm": 3}, "person_detect": {"flatpack": 1}})]
+    if torch.cuda.device_count() >= 2:
+        runs += [("nccl", mode, args, want) for _, mode, args, want in runs]
+    else:
+        res["nccl"] = f"not run: {torch.cuda.device_count()} CUDA device"
+    for backend, mode, args, want in runs:
+        t = time.time()
+        lines = run_workers(mode, backend, *args)
+        label = f"{backend}/{mode}"
+        if any(ln["launches"] != want for ln in lines):
+            raise AssertionError(f"{label}: launches {[ln['launches'] for ln in lines]}, "
+                                 f"expected {want} a rank")
+        res[label] = {"seconds": round(time.time() - t, 1), "ranks": [
+            {k: v for k, v in ln.items() if k not in ("mode", "dist_backend")} for ln in lines]}
+    return res
+
+
+def time_sharded_step(dev, smi: str, batch: int = 1024) -> dict:
+    """ms a speech train step through ``"pallas"``: ``ShardedTrainer`` on a
+    ``[2, 2]`` mesh of the card against the replicated trainer, in turns
+    (sharded, replicated, replicated, sharded), CUDA events around 5 steps
+    after 2 warm-up steps; printed, not gated."""
+    tr = ShardedTrainer(trainer("speech", "pallas", "quantized", dev),
+                        make_mesh(2, 2, devices=[dev] * 4))
+    one = trainer("speech", "pallas", "quantized", dev)
+    xq, gt = train_batch(one, batch, torch.Generator().manual_seed(20))
+    runs = {"sharded_2x2": [], "replicated": []}
+    for name in ("sharded_2x2", "replicated", "replicated", "sharded_2x2"):
+        m = tr if name == "sharded_2x2" else one
+        runs[name].append(time_ms(lambda: m.predict_quantized_train(xq, gt), 5, warmup=2))
+    return {"model": "speech_trainable", "batch": batch, "device": smi, "step_ms": runs}
+
+
+def distributed_checks(dev, smi: str) -> dict:
+    t = time.time()
+    res = {"sharded_speech": sharded_speech_checks(dev),
+           "sharded_fold": sharded_fold_check(dev)}
+    torch.cuda.empty_cache()
+    res["two_process"] = two_process_checks()
+    res["timing"] = time_sharded_step(dev, smi)
+    res["seconds"] = round(time.time() - t, 1)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2078,7 +2352,7 @@ def main() -> int:
     # the exact2 flat kernel, the megakernel and the packed kernel keep their
     # budget: no stack, no spills within __launch_bounds__(256, 4)'s 64
     # registers
-    for key in ("flat_kernelILb0E", "segment_kernel", "packed_kernel"):
+    for key in ("flat_kernelILi0E", "segment_kernel", "packed_kernel"):
         (fn,) = [u for f, u in usage.items() if key in f]
         if fn["registers"] > 64 or fn["stack"] or fn["spill_stores"] or fn["spill_loads"]:
             raise AssertionError(f"{key}: {fn}")
@@ -2112,6 +2386,7 @@ def main() -> int:
           "fma_sensitive_lanes": whole_net["fma_sensitive_lanes"],
           "exact2_corner_lanes": whole_net["exact2_corner_lanes"],
           "fixed_edge_counts": whole_net["fixed_edge_counts"],
+          "mode_edge_counts": whole_net["mode_edge_counts"],
           "flatpack_mma_sync_ops": whole_net["mma_ops"],
           "flatpack_3x3_depthwise_ops": whole_net["dw3_ops"],
           "megakernel_paths": whole_net["mega_paths"],
@@ -2237,10 +2512,21 @@ def main() -> int:
     if fixed_lsb > 2:
         raise AssertionError(f"fixed person_detect is {fixed_lsb} LSB from xla on the JAX "
                              "package's gate samples (gate: 2)")
+    # the measurement-only modes through the same door: 4 launches of their
+    # own instantiation each and no other kernel, finite outputs (not exact)
+    for mode in ("raw", "noround"):
+        with flat_requant(mode):
+            mm = compile_tflite(model_path("person_detect"), name="person_detect", backend="auto")
+        _, paths[f"auto/{mode}"] = drive(mm, pd_reqs)
+        if paths[f"auto/{mode}"] != {f"flatpack_{mode}": 4}:
+            raise AssertionError(f"{mode} person_detect path launched {paths[f'auto/{mode}']}, "
+                                 f"expected 4 launches of flat_kernel<{mode}> and no other")
     launches = {"qgemm": paths["pallas"]["qgemm"], "qdwconv": paths["pallas"]["qdwconv"],
                 "flatpack": paths["flat"]["flatpack"], "colfc": paths["colfc"]["colfc"],
                 "megakernel": paths["fused"]["megakernel"], "packed": paths["packed"]["packed"],
-                "flatpack_fixed": paths["auto/fixed"]["flatpack_fixed"]}
+                "flatpack_fixed": paths["auto/fixed"]["flatpack_fixed"],
+                "flatpack_raw": paths["auto/raw"]["flatpack_raw"],
+                "flatpack_noround": paths["auto/noround"]["flatpack_noround"]}
     emit({"phase": "main_path", "goldens_bit_exact": goldens, "launches_by_path": paths,
           "requests": 4, "fixed_requests_vs_xla_lsb": request_lsb,
           "fixed_gate_samples_vs_xla_lsb": fixed_lsb, "fixed_gate_lsb": 2})
@@ -2339,10 +2625,16 @@ def main() -> int:
     # 9. serving, and the native front end
     emit({"phase": "serve", **serve_checks(dev, rng, smi)})
     torch.cuda.empty_cache()
+    # 10. the tensor-parallel step and the two-process tier
+    emit({"phase": "distributed", "tolerance": "bit-equal (outputs, grads, params)",
+          **distributed_checks(dev, smi)})
+    torch.cuda.empty_cache()
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
 
     per_kernel = {**timing, "flatpack": timing_whole["flatpack_person_detect"],
                   "flatpack_fixed": timing_whole["flatpack_fixed_person_detect"],
+                  "flatpack_raw": timing_whole["flatpack_raw_person_detect"],
+                  "flatpack_noround": timing_whole["flatpack_noround_person_detect"],
                   "colfc": timing_whole["colfc_sine"],
                   "megakernel": timing_whole["megakernel_person_detect"],
                   "packed": timing_whole["packed_person_detect"]}

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..kernels.flatpack import INSTANTIATIONS
 from ..kernels.qdwconv import PATH_GENERAL, PATH_NAMES
 from ..kernels.qdwconv import plan as qdwconv_plan
 from ..kernels.qgemm import MMA_MIN_K, qgemm_path
@@ -114,7 +115,7 @@ def expansion(model, batch_size: int = 1) -> str:
         fn, tail_from, _ = model._flat
         paths = fn.paths if cuda else [None] * len(fn.ops)
         lines += _kernel_lines(
-            f"flat_kernel<{str(fn.requant == 'fixed').lower()}>", "csrc/flatpack.cu",
+            f"flat_kernel<{INSTANTIATIONS[fn.requant]}>", "csrc/flatpack.cu",
             "flat_forward_reference", cuda,
             [(op.layer_idx, op.kind, op.in_shape, op.out_shape, p)
              for op, p in zip(fn.ops, paths)], f", requant {fn.requant}")

@@ -26,6 +26,14 @@ __device__ __forceinline__ int8_t mf_exact2(float y, float lo, float hi) {
   return (int8_t)__float2int_rz(fminf(fmaxf(t, lo), hi));
 }
 
+// The TPU kernel's measurement-only "noround": y cast to int8 by a
+// truncation toward zero that saturates (Mosaic's f32->int8 convert), with
+// no round and no activation clip: the clamp to the int8 range in f32 first,
+// then the truncating conversion, which is then exact.
+__device__ __forceinline__ int8_t mf_trunc_sat(float y) {
+  return (int8_t)__float2int_rz(fminf(fmaxf(y, -128.0f), 127.0f));
+}
+
 // roundf (half away from zero), then the clamp: the reference's own rule
 // ("exact", pool, softmax).
 __device__ __forceinline__ int8_t mf_round_away(float y, float lo, float hi) {

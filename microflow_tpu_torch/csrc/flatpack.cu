@@ -32,9 +32,13 @@
 // Every read stays in bounds: a tap outside the input is skipped, or reads
 // in_zp in place of the input (either way it adds (in_zp - in_zp) * w = 0,
 // as in the reference), where the TPU kernel read past the row into its
-// tile padding.  Epilogues: csrc/epilogue.cuh; flat_kernel<true> is the
-// TPU kernel's requant="fixed", the integer (M, S) epilogue on every op path
-// (its plan: F_EXACT = R_FIXED, bias_q and m in the F_BIAS and F_C1 words).
+// tile padding.  Epilogues: csrc/epilogue.cuh.  flat_kernel<kMode> is one
+// instantiation a requant mode of the TPU kernel (segment_ops.cuh):
+// <R_EXACT2> runs "exact2" and "exact" (F_EXACT says which); <R_FIXED> is
+// "fixed", the integer (M, S) epilogue on every op path (its plan: bias_q and
+// m in the F_BIAS and F_C1 words); <R_RAW> and <R_NOROUND> are the
+// measurement-only "raw" (the accumulator's low byte; its plan packs in_zp = 0
+// and d = 0) and "noround" (a saturating truncation of y, no clip).
 
 #include "segment_ops.cuh"
 #include "general_ops.cuh"
@@ -45,14 +49,14 @@ enum { K_DW, K_CONV, K_PW, K_FC, K_POOL, K_SOFTMAX };
 
 // FullyConnected: one warp an output, lanes over K, then a shuffle sum
 // (integer, so the order does not matter).  Weights are [N][K].
-template <bool kFixed>
+template <int kMode>
 __device__ void op_fc(const Op& op, const int8_t* src, int8_t* dst) {
   const int K = op[F_IN], N = op[F_OUT], zp = op[F_ZP], exact = op[F_EXACT];
   const float lo = (float)op[F_LO], hi = (float)op[F_HI];
   const int8_t* w = op.at<int8_t>(F_W);
   const float* b0 = op.at<float>(F_BIAS);
   const float* c1 = op.at<float>(F_C1);
-  const Fixed fx = kFixed ? Fixed(op) : Fixed();
+  const Fixed fx = kMode == R_FIXED ? Fixed(op) : Fixed();
   const int lane = threadIdx.x & 31;
   for (int n = threadIdx.x >> 5; n < N; n += kThreads / 32) {
     const int8_t* wr = w + (size_t)n * K;
@@ -60,9 +64,7 @@ __device__ void op_fc(const Op& op, const int8_t* src, int8_t* dst) {
     for (int k = lane; k < K; k += 32) acc += ((int)src[k] - zp) * (int)__ldg(wr + k);
 #pragma unroll
     for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-    if (lane == 0)
-      dst[n] = kFixed ? fx(acc, __ldg(b0 + n), __ldg(c1 + n))
-                      : requant(acc, __ldg(b0 + n), __ldg(c1 + n), lo, hi, exact);
+    if (lane == 0) dst[n] = out8<kMode>(acc, __ldg(b0 + n), __ldg(c1 + n), lo, hi, exact, fx);
   }
 }
 
@@ -83,7 +85,7 @@ __device__ void op_softmax(const Op& op, const int8_t* src, int8_t* dst) {
   }
 }
 
-template <bool kFixed>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 4)
     flat_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, long long B,
                 const unsigned char* __restrict__ plan, int n_ops, int in_elems, int out_elems,
@@ -93,21 +95,21 @@ __global__ void __launch_bounds__(kThreads, 4)
              switch (op[F_KIND]) {
                case K_DW:
                  switch (op[F_DW3]) {
-                   case DW3_S1: op_dw3<1, kFixed>(op, src, dst); break;
-                   case DW3_S2: op_dw3<2, kFixed>(op, src, dst); break;
-                   case DW3_STEM: op_dw3_stem<kFixed>(op, src, dst); break;
+                   case DW3_S1: op_dw3<1, kMode>(op, src, dst); break;
+                   case DW3_S2: op_dw3<2, kMode>(op, src, dst); break;
+                   case DW3_STEM: op_dw3_stem<kMode>(op, src, dst); break;
                    default:
-                     if (op[F_VEC]) op_dw_vec<kFixed>(op, src, dst);
-                     else op_dw<kFixed>(op, src, dst);
+                     if (op[F_VEC]) op_dw_vec<kMode>(op, src, dst);
+                     else op_dw<kMode>(op, src, dst);
                  }
                  break;
-               case K_CONV: op_conv<kFixed>(op, src, dst); break;
+               case K_CONV: op_conv<kMode>(op, src, dst); break;
                case K_PW:
-                 if (op[F_MMA]) op_pw_mma<kFixed>(op, src, dst);
-                 else op_pw<kFixed>(op, src, dst);
+                 if (op[F_MMA]) op_pw_mma<kMode>(op, src, dst);
+                 else op_pw<kMode>(op, src, dst);
                  break;
-               case K_FC: op_fc<kFixed>(op, src, dst); break;
-               case K_POOL: op_pool(op, src, dst); break;
+               case K_FC: op_fc<kMode>(op, src, dst); break;
+               case K_POOL: op_pool<kMode>(op, src, dst); break;
                default: op_softmax(op, src, dst); break;
              }
            });
@@ -117,16 +119,30 @@ __global__ void __launch_bounds__(kThreads, 4)
 
 // Plain C entry point (bound with ctypes).  plan: the device buffer of
 // kernels/flatpack.py::pack_plan; smem_a/smem_b: its two buffer sizes;
-// fixed: 1 for a plan packed with requant="fixed" (flat_kernel<true>), else
-// 0.  Returns the CUDA error code (0 on success); a launch the card
-// refuses, for too much shared memory for example, returns its error here.
+// mode: the F_EXACT of the plan's epilogue (kernels/flatpack.py::EPILOGUES),
+// which picks the instantiation: R_EXACT2 and R_EXACT flat_kernel<R_EXACT2>,
+// the others their own.  Returns the CUDA error code (0 on success); a
+// launch the card refuses, for too much shared memory for example, returns
+// its error here.
 extern "C" int mf_flatpack(const void* x, void* out, long long B, const void* plan, int n_ops,
-                           int in_elems, int out_elems, int smem_a, int smem_b, int fixed,
+                           int in_elems, int out_elems, int smem_a, int smem_b, int mode,
                            void* stream) {
   if (B <= 0 || n_ops <= 0 || in_elems <= 0 || out_elems <= 0) return (int)cudaErrorInvalidValue;
-  if (fixed)
-    return launch_plan(flat_kernel<true>, x, out, B, plan, n_ops, in_elems, out_elems, smem_a,
-                       smem_b, stream);
-  return launch_plan(flat_kernel<false>, x, out, B, plan, n_ops, in_elems, out_elems, smem_a,
-                     smem_b, stream);
+  switch (mode) {
+    case R_EXACT2:
+    case R_EXACT:
+      return launch_plan(flat_kernel<R_EXACT2>, x, out, B, plan, n_ops, in_elems, out_elems,
+                         smem_a, smem_b, stream);
+    case R_FIXED:
+      return launch_plan(flat_kernel<R_FIXED>, x, out, B, plan, n_ops, in_elems, out_elems,
+                         smem_a, smem_b, stream);
+    case R_RAW:
+      return launch_plan(flat_kernel<R_RAW>, x, out, B, plan, n_ops, in_elems, out_elems, smem_a,
+                         smem_b, stream);
+    case R_NOROUND:
+      return launch_plan(flat_kernel<R_NOROUND>, x, out, B, plan, n_ops, in_elems, out_elems,
+                         smem_a, smem_b, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -7,8 +7,8 @@
 // tensor cores (op_pw).  Every read stays in bounds: a tap outside
 // the input is skipped, so the sum is over in-bounds taps (x - in_zp) * w,
 // as in the reference; a 1x1 window is always in bounds, and op_pw adds
-// d = -in_zp * colsum to the raw int8 dot.  kFixed picks the fixed-point
-// epilogue (flat_kernel<true>); else F_EXACT's rounding (requant).
+// d = -in_zp * colsum to the raw int8 dot.  kMode is the instantiation's
+// epilogue (segment_ops.cuh: out8).
 
 #pragma once
 
@@ -19,7 +19,7 @@ namespace {
 // Depthwise conv, one output a thread (the general case); output channel c
 // reads input channel c, or channel 0 when the input has fewer channels
 // (the depth-multiplier fallback).
-template <bool kFixed>
+template <int kMode = R_EXACT2>
 __device__ void op_dw(const Op& op, const int8_t* src, int8_t* dst) {
   const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
   const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
@@ -29,7 +29,7 @@ __device__ void op_dw(const Op& op, const int8_t* src, int8_t* dst) {
   const int8_t* w = op.at<int8_t>(F_W);  // [KH][KW][OC]
   const float* b0 = op.at<float>(F_BIAS);
   const float* c1 = op.at<float>(F_C1);
-  const Fixed fx = kFixed ? Fixed(op) : Fixed();
+  const Fixed fx = kMode == R_FIXED ? Fixed(op) : Fixed();
   const int total = oh * ow * oc;
   for (int e = threadIdx.x; e < total; e += kThreads) {
     const int c = e % oc, p = e / oc;
@@ -45,13 +45,12 @@ __device__ void op_dw(const Op& op, const int8_t* src, int8_t* dst) {
         acc += ((int)src[(r * iw + q) * ic + ci] - zp) * (int)__ldg(w + (dh * kw + dw) * oc + c);
       }
     }
-    dst[e] = kFixed ? fx(acc, __ldg(b0 + c), __ldg(c1 + c))
-                    : requant(acc, __ldg(b0 + c), __ldg(c1 + c), lo, hi, exact);
+    dst[e] = out8<kMode>(acc, __ldg(b0 + c), __ldg(c1 + c), lo, hi, exact, fx);
   }
 }
 
 // Any Conv2D: filters [OC][KH][KW][IC].
-template <bool kFixed>
+template <int kMode = R_EXACT2>
 __device__ void op_conv(const Op& op, const int8_t* src, int8_t* dst) {
   const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
   const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
@@ -61,7 +60,7 @@ __device__ void op_conv(const Op& op, const int8_t* src, int8_t* dst) {
   const int8_t* w = op.at<int8_t>(F_W);
   const float* b0 = op.at<float>(F_BIAS);
   const float* c1 = op.at<float>(F_C1);
-  const Fixed fx = kFixed ? Fixed(op) : Fixed();
+  const Fixed fx = kMode == R_FIXED ? Fixed(op) : Fixed();
   const int total = oh * ow * oc;
   for (int e = threadIdx.x; e < total; e += kThreads) {
     const int f = e % oc, p = e / oc;
@@ -78,14 +77,13 @@ __device__ void op_conv(const Op& op, const int8_t* src, int8_t* dst) {
         for (int ci = 0; ci < ic; ++ci) acc += ((int)xs[ci] - zp) * (int)__ldg(ws + ci);
       }
     }
-    dst[e] = kFixed ? fx(acc, __ldg(b0 + f), __ldg(c1 + f))
-                    : requant(acc, __ldg(b0 + f), __ldg(c1 + f), lo, hi, exact);
+    dst[e] = out8<kMode>(acc, __ldg(b0 + f), __ldg(c1 + f), lo, hi, exact, fx);
   }
 }
 
 // 1x1 conv (any stride) over IC % 4 == 0 channels: raw int8 dot by __dp4a
 // plus d[f] = -in_zp * colsum.  Weights are [IC/4][OC] words.
-template <bool kFixed>
+template <int kMode = R_EXACT2>
 __device__ void op_pw(const Op& op, const int8_t* src, int8_t* dst) {
   const int iw = op[F_IW], ic = op[F_IC];
   const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
@@ -95,7 +93,7 @@ __device__ void op_pw(const Op& op, const int8_t* src, int8_t* dst) {
   const int* d = op.at<int>(F_D);
   const float* b0 = op.at<float>(F_BIAS);
   const float* c1 = op.at<float>(F_C1);
-  const Fixed fx = kFixed ? Fixed(op) : Fixed();
+  const Fixed fx = kMode == R_FIXED ? Fixed(op) : Fixed();
   const int k4 = ic >> 2;
   if ((oc & 3) == 0) {
     // four output channels a thread: one x word feeds four __dp4a, and the
@@ -120,11 +118,8 @@ __device__ void op_pw(const Op& op, const int8_t* src, int8_t* dst) {
       uint32_t packed = 0;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        packed |= (uint32_t)(uint8_t)(kFixed ? fx(acc[j] + __ldg(d + c + j), __ldg(b0 + c + j),
-                                                  __ldg(c1 + c + j))
-                                               : requant(acc[j] + __ldg(d + c + j),
-                                                         __ldg(b0 + c + j), __ldg(c1 + c + j),
-                                                         lo, hi, exact))
+        packed |= (uint32_t)(uint8_t)out8<kMode>(acc[j] + __ldg(d + c + j), __ldg(b0 + c + j),
+                                                 __ldg(c1 + c + j), lo, hi, exact, fx)
                   << (8 * j);
       *reinterpret_cast<uint32_t*>(dst + p * oc + c) = packed;
     }
@@ -136,8 +131,7 @@ __device__ void op_pw(const Op& op, const int8_t* src, int8_t* dst) {
       const int* xw = reinterpret_cast<const int*>(src + ip * ic);
       int acc = 0;
       for (int k = 0; k < k4; ++k) acc = __dp4a(xw[k], __ldg(w4 + k * oc + c), acc);
-      dst[e] = kFixed ? fx(acc + __ldg(d + c), __ldg(b0 + c), __ldg(c1 + c))
-                      : requant(acc + __ldg(d + c), __ldg(b0 + c), __ldg(c1 + c), lo, hi, exact);
+      dst[e] = out8<kMode>(acc + __ldg(d + c), __ldg(b0 + c), __ldg(c1 + c), lo, hi, exact, fx);
     }
   }
 }

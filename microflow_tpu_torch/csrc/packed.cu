@@ -55,14 +55,14 @@ __global__ void __launch_bounds__(kThreads, 4)
                    case DW3_STEM: op_dw3_stem(op, src, dst); break;
                    default:
                      if (op[F_VEC]) op_dw_vec(op, src, dst);
-                     else op_dw<false>(op, src, dst);
+                     else op_dw(op, src, dst);
                  }
                  break;
                case K_PW:
                  if (op[F_MMA]) op_pw_mma(op, src, dst);
-                 else op_pw<false>(op, src, dst);
+                 else op_pw(op, src, dst);
                  break;
-               default: op_conv<false>(op, src, dst); break;
+               default: op_conv(op, src, dst); break;
              }
            });
 }

@@ -49,10 +49,18 @@
 // all of c's taps removes it again, so the sum is sum over in-bounds taps
 // (x - in_zp) * w, as in the reference.  Epilogues: epilogue.cuh, the
 // rounding chosen per op by F_EXACT (round half away from zero, or
-// exact2).  The flat kernel's fixed-point instantiation (kFixed, F_EXACT =
-// R_FIXED in its plan) takes the (M, S) epilogue on every path instead: an
-// op's F_BIAS words then hold bias_q as i32 and its F_C1 words m = M * 2^-S;
-// the megakernel never instantiates it.
+// exact2).  The op paths take the instantiation's epilogue as a template
+// mode (kMode): R_EXACT2, the default and the only one the megakernel and
+// the packed kernel instantiate, rounds as F_EXACT says at run time
+// (requant); the flat kernel's other instantiations take one epilogue on
+// every path, F_EXACT naming it in their plans too.  R_FIXED is the (M, S)
+// epilogue: an op's F_BIAS words then hold bias_q as i32 and its F_C1 words
+// m = M * 2^-S.  R_RAW and R_NOROUND are the TPU kernel's measurement-only
+// modes: R_RAW stores the low byte of the accumulator (its plan packs
+// in_zp = 0 and d = 0, so every path's sum is the JAX plan's accumulator,
+// sum over in-bounds taps x * w, which is q less the JAX plan's d), and a
+// pool its sum's low byte; R_NOROUND truncates y = bias0 + c1 * f32(q)
+// toward zero, saturating, with no round and no activation clip.
 
 #pragma once
 
@@ -72,7 +80,8 @@ enum {
   F_DW3, F_WZP
 };
 enum { DW3_NONE, DW3_S1, DW3_S2, DW3_STEM };  // F_DW3: which 3x3 depthwise path
-enum { R_EXACT2, R_EXACT, R_FIXED };  // F_EXACT: the epilogue of a conv, dw or fc op
+// F_EXACT: the epilogue of a conv, dw or fc op
+enum { R_EXACT2, R_EXACT, R_FIXED, R_RAW, R_NOROUND };
 constexpr int DW_STRIP = 3;    // output pixels a work item of op_dw3
 constexpr int STEM_STRIP = 4;  // output pixels a work item of op_dw3_stem
 // The most elements a tensor of an F_MMA or F_DW3 op may have: Div16's
@@ -95,16 +104,19 @@ __device__ __forceinline__ int8_t requant(int acc, float b0, float c1, float lo,
   return exact ? mf_round_away(y, lo, hi) : mf_exact2(y, lo, hi);
 }
 
-// One output of epilogue kMode (R_EXACT2, R_EXACT or R_FIXED) from the
-// accumulator and the channel's F_BIAS and F_C1 words; for R_FIXED, lo and
-// hi are the bounds less zp (Fixed).
+// One output of epilogue kMode (R_EXACT2, R_EXACT, R_FIXED, R_RAW or
+// R_NOROUND) from the accumulator and the channel's F_BIAS and F_C1 words;
+// for R_FIXED, lo and hi are the bounds less zp (Fixed).
 template <int kMode>
 __device__ __forceinline__ int8_t epilogue(int acc, float b0, float c1, float lo, float hi,
                                            int zp) {
   if constexpr (kMode == R_FIXED) {
     return mf_fixed(acc + __float_as_int(b0), c1, zp, lo, hi);
+  } else if constexpr (kMode == R_RAW) {
+    return (int8_t)acc;
   } else {
     const float y = mf_affine(b0, c1, acc);
+    if constexpr (kMode == R_NOROUND) return mf_trunc_sat(y);
     return kMode == R_EXACT ? mf_round_away(y, lo, hi) : mf_exact2(y, lo, hi);
   }
 }
@@ -123,6 +135,16 @@ struct Fixed {
   }
 };
 
+// One output of an op path instantiated for kMode: under R_EXACT2 the op's
+// F_EXACT rounding, picked at run time (requant); else kMode's epilogue.
+template <int kMode>
+__device__ __forceinline__ int8_t out8(int acc, float b0, float c1, float lo, float hi, int exact,
+                                       const Fixed& fx) {
+  if constexpr (kMode == R_FIXED) return fx(acc, b0, c1);
+  else if constexpr (kMode == R_EXACT2) return requant(acc, b0, c1, lo, hi, exact);
+  else return epilogue<kMode>(acc, b0, c1, lo, hi, 0);
+}
+
 // Depthwise conv, four channels a thread (OC % 4 == 0, IC == OC or IC == 1,
 // OC/4 dividing the block): each thread keeps one group of four channels,
 // so its epilogue constants stay in registers.  Taps go four at a time: the
@@ -131,7 +153,7 @@ struct Fixed {
 // four taps each.  A tap outside the input reads in_zp, and d[c] =
 // -in_zp * sum of all taps' w removes it again: the sum is then
 // sum over in-bounds taps (x - in_zp) * w, exactly.
-template <bool kFixed = false>
+template <int kMode = R_EXACT2>
 __device__ void op_dw_vec(const Op& op, const int8_t* src, int8_t* dst) {
   const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
   const int oh = op[F_OH], ow = op[F_OW], oc = op[F_OC];
@@ -142,7 +164,7 @@ __device__ void op_dw_vec(const Op& op, const int8_t* src, int8_t* dst) {
   const int groups = oc >> 2, g = threadIdx.x % groups, c0 = 4 * g;
   const int taps = kh * kw, n4 = (taps + 3) >> 2;
   const int4* w4 = op.at<int4>(F_W) + g;
-  const Fixed fx = kFixed ? Fixed(op) : Fixed();
+  const Fixed fx = kMode == R_FIXED ? Fixed(op) : Fixed();
   int d[4];
   float b0[4], c1[4];
 #pragma unroll
@@ -186,8 +208,7 @@ __device__ void op_dw_vec(const Op& op, const int8_t* src, int8_t* dst) {
     uint32_t packed = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      packed |= (uint32_t)(uint8_t)(kFixed ? fx(acc[j] + d[j], b0[j], c1[j])
-                                           : requant(acc[j] + d[j], b0[j], c1[j], lo, hi, exact))
+      packed |= (uint32_t)(uint8_t)out8<kMode>(acc[j] + d[j], b0[j], c1[j], lo, hi, exact, fx)
                 << (8 * j);
     *reinterpret_cast<uint32_t*>(dst + p * oc + c0) = packed;
   }
@@ -261,7 +282,7 @@ __device__ __forceinline__ void store_tiles(const int (&acc)[NT][4], int8_t* dst
 // second); else one unit covers the last <= 32 and lane t reads channels
 // kb+8t..kb+8t+7.  The plan puts the weights of the same channels in the
 // same lanes.  Every loop is warp-uniform, as mma.sync needs.
-template <bool kFixed = false>
+template <int kMode = R_EXACT2>
 __device__ void op_pw_mma(const Op& op, const int8_t* src, int8_t* dst) {
   const int iw = op[F_IW], ic = op[F_IC];
   const int ow = op[F_OW], oc = op[F_OC], np = op[F_OH] * ow;
@@ -275,7 +296,7 @@ __device__ void op_pw_mma(const Op& op, const int8_t* src, int8_t* dst) {
   const float* b0 = op.at<float>(F_BIAS);
   const float* c1 = op.at<float>(F_C1);
   const Div16 by_chunks(chunks), by_ow(ow);
-  const Fixed fx = kFixed ? Fixed(op) : Fixed();
+  const Fixed fx = kMode == R_FIXED ? Fixed(op) : Fixed();
   for (int item = threadIdx.x >> 5; item < (oc >> 4) * chunks; item += kThreads / 32) {
     const int m = by_chunks(item), n0 = (item - m * chunks) * (8 * NT);
     const int r0 = 16 * m + g;  // this lane's output channels: r0 and r0 + 8
@@ -317,9 +338,11 @@ __device__ void op_pw_mma(const Op& op, const int8_t* src, int8_t* dst) {
     }
     const float b0g = __ldg(b0 + r0), b0h = __ldg(b0 + r0 + 8);
     const float c1g = __ldg(c1 + r0), c1h = __ldg(c1 + r0 + 8);
-    if (kFixed)
+    if constexpr (kMode == R_FIXED)
       store_tiles<R_FIXED>(acc, dst, n0 + 2 * t, np, oc, r0, b0g, b0h, c1g, c1h, fx.lo, fx.hi,
                            fx.zp);
+    else if constexpr (kMode != R_EXACT2)
+      store_tiles<kMode>(acc, dst, n0 + 2 * t, np, oc, r0, b0g, b0h, c1g, c1h, lo, hi, 0);
     else if (exact)
       store_tiles<R_EXACT>(acc, dst, n0 + 2 * t, np, oc, r0, b0g, b0h, c1g, c1h, lo, hi, 0);
     else store_tiles<R_EXACT2>(acc, dst, n0 + 2 * t, np, oc, r0, b0g, b0h, c1g, c1h, lo, hi, 0);
@@ -380,7 +403,7 @@ __device__ __forceinline__ void store_strip(const int (&acc)[S][4], int8_t* dst,
 // channel.  At stride 1 the word of columns q..q+3 serves output q with the
 // taps (w0, w1, w2, 0) and output q + 1 with (0, w0, w1, w2); at stride 2
 // word i serves output i.  The sums are op_dw_vec's, so are the bits.
-template <int SD, bool kFixed = false>
+template <int SD, int kMode = R_EXACT2>
 __device__ void op_dw3(const Op& op, const int8_t* src, int8_t* dst) {
   constexpr int S = DW_STRIP;
   constexpr int NX = SD == 1 ? S + 2 : 2 * S + 1;  // input columns of a strip
@@ -391,7 +414,7 @@ __device__ void op_dw3(const Op& op, const int8_t* src, int8_t* dst) {
   const uint32_t zpw = __byte_perm((uint32_t)op[F_ZP], 0, 0x0000);
   const int groups = c >> 2, g = threadIdx.x % groups;
   const Dw3Consts k(op, g, groups);
-  const Fixed fx = kFixed ? Fixed(op) : Fixed();
+  const Fixed fx = kMode == R_FIXED ? Fixed(op) : Fixed();
   const int ns = (ow + S - 1) / S;  // strips a row
   const Div16 by_ns(ns);
   const int8_t* sg = src + 4 * g;
@@ -444,7 +467,9 @@ __device__ void op_dw3(const Op& op, const int8_t* src, int8_t* dst) {
       }
     }
     int8_t* out = dst + (oy * ow + ox) * c + 4 * g;
-    if (kFixed) store_strip<R_FIXED>(acc, out, ow - ox, c, k, fx.lo, fx.hi, fx.zp);
+    if constexpr (kMode == R_FIXED)
+      store_strip<R_FIXED>(acc, out, ow - ox, c, k, fx.lo, fx.hi, fx.zp);
+    else if constexpr (kMode != R_EXACT2) store_strip<kMode>(acc, out, ow - ox, c, k, lo, hi, 0);
     else if (exact) store_strip<R_EXACT>(acc, out, ow - ox, c, k, lo, hi, 0);
     else store_strip<R_EXACT2>(acc, out, ow - ox, c, k, lo, hi, 0);
   }
@@ -459,7 +484,7 @@ __device__ void op_dw3(const Op& op, const int8_t* src, int8_t* dst) {
 // in_zp).  Every channel reads the same byte, so the word of output 4s+j's
 // columns, bytes 8s-1+2j .. 8s+2+2j (the last, of weight 0, any byte),
 // is one byte permutation and no transpose, and serves four __dp4a.
-template <bool kFixed = false>
+template <int kMode = R_EXACT2>
 __device__ void op_dw3_stem(const Op& op, const int8_t* src, int8_t* dst) {
   constexpr int S = STEM_STRIP;
   const int ih = op[F_IH], iw = op[F_IW], c = op[F_OC], oh = op[F_OH], ow = op[F_OW];
@@ -468,7 +493,7 @@ __device__ void op_dw3_stem(const Op& op, const int8_t* src, int8_t* dst) {
   const uint32_t zpw = __byte_perm((uint32_t)op[F_ZP], 0, 0x0000);
   const int groups = c >> 2, g = threadIdx.x % groups;
   const Dw3Consts k(op, g, groups);
-  const Fixed fx = kFixed ? Fixed(op) : Fixed();
+  const Fixed fx = kMode == R_FIXED ? Fixed(op) : Fixed();
   const int ns = (ow + S - 1) / S;
   const Div16 by_ns(ns);
   for (int it = threadIdx.x / groups; it < oh * ns; it += kThreads / groups) {
@@ -499,14 +524,18 @@ __device__ void op_dw3_stem(const Op& op, const int8_t* src, int8_t* dst) {
         for (int j = 0; j < 4; ++j) acc[o][j] = __dp4a((int)xw[o], k.w[dh][j], acc[o][j]);
     }
     int8_t* out = dst + (oy * ow + ox) * c + 4 * g;
-    if (kFixed) store_strip<R_FIXED>(acc, out, ow - ox, c, k, fx.lo, fx.hi, fx.zp);
+    if constexpr (kMode == R_FIXED)
+      store_strip<R_FIXED>(acc, out, ow - ox, c, k, fx.lo, fx.hi, fx.zp);
+    else if constexpr (kMode != R_EXACT2) store_strip<kMode>(acc, out, ow - ox, c, k, lo, hi, 0);
     else if (exact) store_strip<R_EXACT>(acc, out, ow - ox, c, k, lo, hi, 0);
     else store_strip<R_EXACT2>(acc, out, ow - ox, c, k, lo, hi, 0);
   }
 }
 
 // AveragePool: in-bounds sum (true zeros outside), then
-// roundf(c0 * (recip[p] * f32(sum)) + c1), clamped.
+// roundf(c0 * (recip[p] * f32(sum)) + c1), clamped; under R_RAW the sum's
+// low byte (every other mode keeps this epilogue).
+template <int kMode = R_EXACT2>
 __device__ void op_pool(const Op& op, const int8_t* src, int8_t* dst) {
   const int ih = op[F_IH], iw = op[F_IW], ic = op[F_IC];
   const int oh = op[F_OH], ow = op[F_OW];
@@ -528,8 +557,12 @@ __device__ void op_pool(const Op& op, const int8_t* src, int8_t* dst) {
         if (q >= 0 && q < iw) s += src[(r * iw + q) * ic + ch];
       }
     }
-    const float t = __fmul_rn(__ldg(recip + p), __int2float_rn(s));
-    dst[e] = mf_round_away(__fadd_rn(__fmul_rn(c0, t), c1), lo, hi);
+    if constexpr (kMode == R_RAW) {
+      dst[e] = (int8_t)s;
+    } else {
+      const float t = __fmul_rn(__ldg(recip + p), __int2float_rn(s));
+      dst[e] = mf_round_away(__fadd_rn(__fmul_rn(c0, t), c1), lo, hi);
+    }
   }
 }
 

@@ -35,7 +35,15 @@ association order):
   (M, S) requant of ``core/fixedpoint.py``: ``q = acc + bias_q[c]`` in i32
   (wrapping, as the TPU kernel's ``acc + (d + bias_q)``), ``p = f32(q) *
   m[c]`` with ``m = M * 2**-S``, ``t = trunc(p + (p >= 0 ? 0.5 : -0.5))``,
-  then ``clip(t + out_zp, lo, hi)``.
+  then ``clip(t + out_zp, lo, hi)``.  The TPU kernel's measurement-only
+  modes (not bit-exact to the reference; they price the epilogue in situ):
+  ``raw`` stores the low byte of the JAX plan's accumulator, ``sum over
+  in-bounds taps x * w`` (``q`` less the plan's ``d = -in_zp * colsum``),
+  wrapped as XLA's i32 -> s8 convert, with no bias, scale, round or clip (a
+  pool stores its window sum's low byte); ``noround`` stores
+  ``y = bias0 + c1 * f32(acc)`` truncated toward zero, saturating at the
+  int8 range (Mosaic's f32 -> int8 convert), with no round and no activation
+  clip (a pool keeps its epilogue).
 * pool: ``y = c0 * (recip[p] * f32(sum))`` then ``+ c1``, round away,
   clip; the window sum uses true zeros outside the input.
 * softmax: ``e = f32(q) * in_s``, ``expf``, the total summed left to
@@ -76,9 +84,12 @@ LANE = 128  # softmax width limit, the JAX package's one-chunk softmax
 MAX_LANES = 65536
 # Dynamic shared memory one block may use on an H100 (227 KB).
 SMEM_BYTES = 232448
-REQUANT_MODES = ("exact2", "exact", "fixed")
+REQUANT_MODES = ("exact2", "exact", "fixed", "raw", "noround")
 # F_EXACT of a plan's descriptor: the epilogue of its conv, dw and fc ops
-EPILOGUES = {"exact2": 0, "exact": 1, "fixed": 2}
+EPILOGUES = {"exact2": 0, "exact": 1, "fixed": 2, "raw": 3, "noround": 4}
+# the instantiation of csrc/flatpack.cu's flat_kernel<kMode> that runs each mode
+INSTANTIATIONS = {"exact2": "R_EXACT2", "exact": "R_EXACT2", "fixed": "R_FIXED", "raw": "R_RAW",
+                  "noround": "R_NOROUND"}
 
 # Op kinds and descriptor layout; csrc/flatpack.cu and csrc/segment_ops.cuh
 # read the same numbers.  The megakernel's plan (kernels/megakernel.py) writes
@@ -326,11 +337,19 @@ def fixed_bias(c0, c1: np.ndarray, d: np.ndarray) -> np.ndarray | None:
 # --- the plain version --------------------------------------------------------
 
 
+def low_byte(acc: torch.Tensor) -> torch.Tensor:
+    """An exact integer's low byte as int8 (the wrapping i32 -> s8 convert)."""
+    return (torch.remainder(acc.to(torch.int64) + 128, 256) - 128).to(torch.int8)
+
+
 def _requant(acc: torch.Tensor, bias0: torch.Tensor, c1: torch.Tensor, lo: int, hi: int,
              requant: str) -> torch.Tensor:
     """``y = bias0 + c1 * f32(acc)`` (multiply, then add), then ``exact2``
-    or ``exact``, clipped to the int8 bounds ``[lo, hi]``."""
+    or ``exact``, clipped to the int8 bounds ``[lo, hi]``; or ``noround``,
+    ``y`` truncated toward zero within the int8 range, unclipped."""
     y = bias0 + c1 * f32(acc)
+    if requant == "noround":
+        return torch.trunc(torch.clamp(y, -128, 127)).to(torch.int8)
     if requant == "exact2":
         t = y + torch.where(y >= 0, 0.5, -0.5).to(torch.float32)
         t = torch.trunc(t)
@@ -357,15 +376,19 @@ def _op_reference(op: FlatOp, x: torch.Tensor, requant: str) -> torch.Tensor:
     gives), then the kernel's epilogue."""
     dev = x.device
     b = x.shape[0]
+    raw = requant == "raw"
+    in_zp = 0 if raw else op.in_zp  # raw: the JAX plan's accumulator, q less its d
     if op.kind == "softmax":  # sums left to right, as the kernel
         return softmax(x, in_scale=op.sm_in_scale, out_scale=op.sm_out_scale, out_zp=op.out_zp)
     if op.kind == "fc":
         w = torch.from_numpy(op.weights).to(dev, torch.float64)
-        acc = (x.to(torch.float64) - float(op.in_zp)) @ w
+        acc = (x.to(torch.float64) - float(in_zp)) @ w
     else:
         x4 = x.reshape(b, *op.in_shape)
         if op.kind == "pool":
             s = window_sum(pad_nhwc(x4, op.geom, 0), None, op.geom)
+            if raw:
+                return low_byte(s).reshape(b, op.lanes_out)
             recip = torch.from_numpy(op.recip).to(dev).reshape(1, *s.shape[1:3], 1)
             t = recip * f32(s)
             y = (torch.tensor(op.pool_c0, dtype=torch.float32, device=dev) * t
@@ -378,10 +401,12 @@ def _op_reference(op: FlatOp, x: torch.Tensor, requant: str) -> torch.Tensor:
         if op.kind == "dw":
             if c_in not in (1, c_out):  # the channel fallback (1 broadcasts)
                 x4 = x4[..., [c if c < c_in else 0 for c in range(c_out)]]
-            acc = depthwise_conv_2d_accumulate(x4, w, op.geom, op.in_zp, no_wzp)
+            acc = depthwise_conv_2d_accumulate(x4, w, op.geom, in_zp, no_wzp)
         else:
-            acc = conv_2d_accumulate(x4, w, op.geom, op.in_zp, no_wzp)
+            acc = conv_2d_accumulate(x4, w, op.geom, in_zp, no_wzp)
         acc = acc.reshape(b, op.lanes_out)
+    if raw:
+        return low_byte(acc)
     lanes = lambda v: torch.from_numpy(v).to(dev).repeat(op.lanes_out // op.out_shape[-1])
     if requant == "fixed":
         return _requant_fixed(acc, lanes(op.bias_q), lanes(op.m), op.out_zp, op.clip_lo,
@@ -433,7 +458,8 @@ def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
     kernel.  Returns the buffer and its shared-memory split.  ``F_EXACT``
     names the epilogue (``EPILOGUES``); under ``"fixed"`` a conv, dw or fc
     op's ``F_BIAS`` words hold ``bias_q`` (i32) and its ``F_C1`` words
-    ``m``."""
+    ``m``; under ``"raw"`` every op's ``F_ZP`` and ``d`` are 0, so each path
+    sums ``x * w`` over the in-bounds taps, the JAX plan's accumulator."""
     plan = PlanBuffer(len(ops), NF)
     put = plan.put
     for f, op in zip(plan.desc, ops):
@@ -448,7 +474,8 @@ def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
             top, _, left, _ = g.pad_amounts()
             f[F_KH], f[F_KW], f[F_SR], f[F_SC], f[F_PT], f[F_PL] = (
                 g.k_rows, g.k_cols, g.stride_rows, g.stride_cols, top, left)
-        f[F_ZP] = op.in_zp
+        zp = 0 if requant == "raw" else op.in_zp
+        f[F_ZP] = zp
         f[F_LO], f[F_HI] = op.clip_lo, op.clip_hi
         f[F_EXACT] = EPILOGUES[requant]
         f[F_OUTZP] = op.out_zp
@@ -470,7 +497,7 @@ def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
                 # of filter f, so neighbouring threads read neighbouring words
                 w = op.weights.reshape(fm, c // 4, 4).transpose(1, 0, 2)
                 f[F_W] = put(np.ascontiguousarray(w).view(np.int32).reshape(c // 4, fm))
-            f[F_D] = put((-op.in_zp * op.weights.reshape(fm, c).astype(np.int64).sum(1))
+            f[F_D] = put((-zp * op.weights.reshape(fm, c).astype(np.int64).sum(1))
                          .astype(np.int32))
         elif op.kind == "fc":
             f[F_W] = put(np.ascontiguousarray(op.weights.T).astype(np.int8))  # [N, K]
@@ -479,7 +506,7 @@ def pack_plan(ops: list, requant: str = "exact2") -> tuple[np.ndarray, dict]:
             f[F_DW3] = dw3_path(op.geom, op.in_shape, op.out_shape)
             f[F_VEC] = int(not f[F_DW3])
             f[F_W] = put(dw3_words(op.weights) if f[F_DW3] else dw_vec_words(op.weights))
-            f[F_D] = put(dw_offsets(op.weights, op.in_zp).astype(np.int32))
+            f[F_D] = put(dw_offsets(op.weights, zp).astype(np.int32))
         else:  # dw [KH,KW,C] and conv [F,KH,KW,C], as the layer holds them
             f[F_W] = put(op.weights.astype(np.int8))
         if requant == "fixed":  # bias_q as i32 (mod 2**32: the kernel's sum wraps) and m
@@ -593,13 +620,14 @@ def flat_bound(ops: list, batch: int) -> tuple[int, int]:
 class FlatKernel:
     """``flat_fn``: int8 [B, in_lanes] -> int8 [B, out_lanes].  CUDA tensors
     launch the kernel on the plan's device buffer (built once); CPU
-    tensors run ``flat_forward_reference``.  The ``fixed`` epilogue is its
-    own instantiation of the kernel, counted as ``flatpack_fixed``."""
+    tensors run ``flat_forward_reference``.  ``exact2`` and ``exact`` are
+    counted as ``flatpack``; ``fixed``, ``raw`` and ``noround`` are each an
+    instantiation of their own, counted as ``flatpack_<mode>``."""
 
     def __init__(self, ops: list, requant: str, device: torch.device):
         self.ops = ops
         self.requant = requant
-        self.launch_key = "flatpack_fixed" if requant == "fixed" else "flatpack"
+        self.launch_key = "flatpack" if requant in ("exact2", "exact") else f"flatpack_{requant}"
         self.in_lanes = ops[0].lanes_in
         self.out_lanes = ops[-1].lanes_out
         self.device = device
@@ -638,17 +666,13 @@ class FlatKernel:
         with torch.cuda.device(x2.device):
             rc = fn(x2.data_ptr(), out.data_ptr(), b, self.plan.data_ptr(), len(self.ops),
                     self.in_lanes, self.out_lanes, self.smem_a, self.smem_b,
-                    int(self.requant == "fixed"), torch.cuda.current_stream().cuda_stream)
+                    EPILOGUES[self.requant], torch.cuda.current_stream().cuda_stream)
         build.check(rc, "flatpack")
         LAUNCHES[self.launch_key] += 1
         return out
 
 
 def _check_requant(requant: str) -> None:
-    if requant in ("raw", "noround"):
-        raise NotImplementedError(
-            f"requant={requant!r} is a measurement-only epilogue of the JAX package "
-            "(not exact) and is not ported")
     if requant not in REQUANT_MODES:
         raise ValueError(f"unknown requant {requant!r}; choose one of {REQUANT_MODES}")
 
@@ -681,8 +705,8 @@ def build_flat_kernel(graph: Graph, max_layers: int | None = None, requant: str 
     baked into the plan at build.  ``requant`` is ``"exact2"`` (the JAX
     package's default), ``"exact"`` or ``"fixed"`` (the integer (M, S)
     epilogue; a graph whose ``d + bias_q`` leaves int32 raises
-    ``ValueError``, where the JAX package returns None); the
-    measurement-only ``"raw"``/``"noround"`` are not ported.
+    ``ValueError``, where the JAX package returns None), or the
+    measurement-only ``"raw"`` and ``"noround"`` (module docstring).
     """
     from ..compiler.builder import resolve_device
 

@@ -22,6 +22,26 @@ from ..core.activation import FusedActivation, apply_fused_activation
 from ..core.numerics import const_f32, f32, round_away, saturating_cast
 
 
+def fc_partial(x: torch.Tensor, weights: torch.Tensor, *, w_zp: int) -> torch.Tensor:
+    """``acc - rowsum(in) * w_zp`` over the columns of ``x`` [B, K] and the
+    rows of ``weights`` [K, N], float64 [B, N], exact.  Partials over
+    disjoint slices of K add up, exactly, to the whole contraction's."""
+    x64 = x.to(torch.float64)
+    acc = x64 @ weights.to(device=x.device, dtype=torch.float64)  # [B, N], exact
+    return acc - x64.sum(dim=1, keepdim=True) * float(w_zp)
+
+
+def fc_requant(partial: torch.Tensor, *, bias0, c1, c2, c3: int, out_scale: float, out_zp: int,
+               activation: FusedActivation, out_dtype: torch.dtype) -> torch.Tensor:
+    """``q = partial - C2 + C3``, then the epilogue and the activation."""
+    dev = partial.device
+    c2 = torch.as_tensor(c2, device=dev).to(torch.float64)
+    q = partial - c2[None, :] + float(c3)
+    y = round_away(const_f32(bias0, dev)[None, :] + const_f32(c1, dev) * f32(q))
+    y = saturating_cast(y, out_dtype)
+    return apply_fused_activation(y, activation, out_scale, out_zp)
+
+
 def fully_connected(
     x: torch.Tensor,  # [B, K] quantized ints
     weights: torch.Tensor,  # [K, N] quantized ints
@@ -35,13 +55,6 @@ def fully_connected(
     out_zp: int,
     activation: FusedActivation,
 ) -> torch.Tensor:
-    out_dtype = x.dtype
-    dev = x.device
-    x64 = x.to(torch.float64)
-    acc = x64 @ weights.to(device=dev, dtype=torch.float64)  # [B, N], exact
-    rowsum = x64.sum(dim=1, keepdim=True) * float(w_zp)
-    c2 = torch.as_tensor(c2, device=dev).to(torch.float64)
-    q = acc - rowsum - c2[None, :] + float(c3)
-    y = round_away(const_f32(bias0, dev)[None, :] + const_f32(c1, dev) * f32(q))
-    y = saturating_cast(y, out_dtype)
-    return apply_fused_activation(y, activation, out_scale, out_zp)
+    return fc_requant(fc_partial(x, weights, w_zp=w_zp), bias0=bias0, c1=c1, c2=c2, c3=c3,
+                      out_scale=out_scale, out_zp=out_zp, activation=activation,
+                      out_dtype=x.dtype)

@@ -1,6 +1,8 @@
 """Parallel execution layer: device mesh, placement helpers, batch-serving
-executor (the port of ``microflow_tpu.parallel``; ``batch_spec`` is the
-JAX package's ``batch_sharding`` as a partition spec)."""
+executor, the tensor-parallel train step (``tp.ShardedTrainer``) and the
+multi-process tier (``distributed``); the port of ``microflow_tpu.parallel``
+(``batch_spec`` is the JAX package's ``batch_sharding`` as a partition
+spec)."""
 
 from .executor import BatchServer
 from .mesh import (
@@ -13,10 +15,13 @@ from .mesh import (
     shard_params,
     tp_spec,
 )
+from .tp import Collectives, ShardedTrainer
 
 __all__ = [
     "BatchServer",
+    "Collectives",
     "Mesh",
+    "ShardedTrainer",
     "batch_spec",
     "make_mesh",
     "mesh_devices",

@@ -10,14 +10,15 @@ process's ``torch.device``s, ``[n_data, n_model]``:
   index runs its own replica of the model on its chunk, with no
   collective.
 * ``model`` axis: placement of the widest FC weights as row shards
-  (``shard_params``).  Nothing executes those shards yet; the
-  tensor-parallel train step that would consume them is a later slice.
+  (``shard_params``), which the tensor-parallel train step
+  (``parallel/tp.py``) computes from.
 
 Placement is recorded with the JAX package's partition specs as tuples
 (``("model", None)`` for a row-sharded leaf, ``()`` for a replicated one),
 so a placement can be compared with a JAX ``PartitionSpec``.
-``torch.distributed.DeviceMesh`` maps one device to one process; it
-belongs to the multi-process tier, not to this module.
+Across processes (``parallel/distributed.py``) a mesh is the same grid, of
+which each process holds some cells: placement then fills only those
+(``cells``), and the other entries of ``shards`` are None.
 """
 
 from __future__ import annotations
@@ -106,14 +107,15 @@ class Placed:
     shards: np.ndarray
 
 
-def _place(mesh: Mesh, x: torch.Tensor, spec: tuple) -> Placed:
+def _place(mesh: Mesh, x: torch.Tensor, spec: tuple, cells=None) -> Placed:
     """Split ``x`` along each dim that ``spec`` names an axis for, into one
     contiguous piece per index of that axis, and copy each piece to the
-    devices of its index (replicated over the other axis)."""
+    devices of its index (replicated over the other axis); only to the
+    ``(data, model)`` cells listed in ``cells`` where given."""
     spec = tuple(spec)
     n = mesh.shape
     shards = np.empty(mesh.devices.shape, dtype=object)
-    for i, j in np.ndindex(*shards.shape):
+    for i, j in (np.ndindex(*shards.shape) if cells is None else cells):
         index = {"data": i, "model": j}
         piece = x
         for dim, axis in enumerate(spec):
@@ -129,11 +131,11 @@ def batch_spec(ndim: int) -> tuple:
     return ("data",) + (None,) * (ndim - 1)
 
 
-def shard_batch(mesh: Mesh, x) -> Placed:
+def shard_batch(mesh: Mesh, x, cells=None) -> Placed:
     """``x`` split along dim 0 into one contiguous chunk per ``data``
-    index; ``shards[i, 0]`` is chunk ``i``, on ``mesh.devices[i, 0]``."""
+    index; ``shards[i, j]`` is chunk ``i``, on ``mesh.devices[i, j]``."""
     x = torch.as_tensor(x)
-    return _place(mesh, x, batch_spec(x.ndim))
+    return _place(mesh, x, batch_spec(x.ndim), cells)
 
 
 def replicate_params(mesh: Mesh, params: dict) -> dict:
@@ -159,9 +161,11 @@ def tp_spec(name: str, arr, n_model: int, min_rows: int) -> tuple:
     return ()
 
 
-def shard_params(mesh: Mesh, tree: dict, policy="tp", min_rows: int | None = None) -> dict:
+def shard_params(mesh: Mesh, tree: dict, policy="tp", min_rows: int | None = None,
+                 cells=None) -> dict:
     """Place a params/grads tree (``{layer: {name: tensor}}``) on ``mesh``:
-    ``{layer: {name: Placed}}``.  Placement only.
+    ``{layer: {name: Placed}}``, on every cell or on the ``(data, model)``
+    cells listed in ``cells``.
 
     ``policy``:
       * ``"replicate"``: every leaf whole on every device;
@@ -187,6 +191,6 @@ def shard_params(mesh: Mesh, tree: dict, policy="tp", min_rows: int | None = Non
             return tp_spec(name, arr, n_model, min_rows)
         raise ValueError(f"unknown sharding policy: {policy!r}")
 
-    return {key: {name: _place(mesh, torch.as_tensor(arr), spec_for(key, name, arr))
+    return {key: {name: _place(mesh, torch.as_tensor(arr), spec_for(key, name, arr), cells)
                   for name, arr in sub.items()}
             for key, sub in tree.items()}

@@ -103,14 +103,27 @@ def fc_backward(layer: FullyConnectedLayer, x_q, out_q, weights, d_out):
 
     Reference ``update_grad_fully_connected`` (``gradient_fully_connected.rs:11-61``).
     """
+    dW, col_sums = fc_weight_sums(layer, x_q, out_q, d_out)
+    return wrap_i32(dW), f32(wrap_i32(col_sums)), fc_input_grad(layer, out_q, weights, d_out)
+
+
+def fc_weight_sums(layer: FullyConnectedLayer, x_q, out_q, d_out):
+    """The exact integer sums under the FC weight and bias gradients, before
+    the wrap to i32: (dW int64 [K,N], the masked dOut's column sums int64
+    [N]).  Over rows of x_q's columns (a slice of K) and over chunks of the
+    batch they add up to the whole: the sharded step sums them so."""
     md_w = _mask(layer, out_q, d_out)
     xc = x_q.to(torch.int32) - layer.in_q.zp0
-    dW = wrap_i32(int_dot(xc.T, md_w))
-    bias_grad = f32(wrap_i32(md_w.to(torch.int64).sum(0)))
+    return int_dot(xc.T, md_w), md_w.to(torch.int64).sum(0)
+
+
+def fc_input_grad(layer: FullyConnectedLayer, out_q, weights, d_out):
+    """dIn i32 [B,K] of the FC backward (``weights`` [K,N], or a slice of
+    its rows for those columns of dIn); it masks on the raw quantized output
+    (``gradient_fully_connected.rs:171-177``)."""
     md_in = _mask(layer, out_q, d_out, raw=True)
     wc = weights.to(torch.int32) - layer.w_q.zp0
-    d_in = wrap_i32(int_dot(md_in, wc.T))
-    return dW, bias_grad, d_in
+    return wrap_i32(int_dot(md_in, wc.T))
 
 
 def fc_backward_float(layer: FullyConnectedLayer, x_q, out_q, weights, d_out_f32):

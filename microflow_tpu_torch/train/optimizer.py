@@ -75,13 +75,28 @@ def update_weights_clip_norm_2d(weights, grad_i32, batch_size: int, lr: float):
     """Norm-clipped SGD: THE variant the FC train codegen emits
     (``update_layer.rs:130-157``;
     ``microflow-train-macros/src/ops/fully_connected.rs:340``)."""
-    dev = weights.device
+    return clip_norm_step(weights, grad_i32, clip_norm_squares(grad_i32, batch_size),
+                          batch_size, lr)
+
+
+def clip_norm_squares(grad_i32, batch_size: int) -> torch.Tensor:
+    """The clip norm's sum of squares, exact, as a float64 scalar: the f32
+    values of the wrapping i32 squares of ``g / B`` (Rust's i32 division,
+    truncating toward zero).  Each is an integer below 2**31, so sums over
+    slices of the matrix add up, exactly, to the whole's while below 2**53."""
     # Rust i32 division truncates toward zero, as sign * (|g| // B); |g|
     # wraps at INT_MIN, as jnp.abs does
     a = grad_i32.abs().to(torch.int64)
     per = (torch.sign(grad_i32).to(torch.int64) * (a // batch_size)).to(torch.int32)
     sq = (per.to(torch.int64) * per.to(torch.int64)).to(torch.int32)  # wrapping i32
-    norm = torch.sqrt(f32(sq).to(torch.float64).sum().to(torch.float32))
+    return f32(sq).to(torch.float64).sum()
+
+
+def clip_norm_step(weights, grad_i32, squares: torch.Tensor, batch_size: int, lr: float):
+    """The clip-norm update of ``weights`` (the whole matrix or rows of it)
+    from the whole matrix's ``clip_norm_squares``, rounded to f32 once."""
+    dev = weights.device
+    norm = torch.sqrt(squares.to(torch.float32))
     scale = torch.where(norm > 127.0, const_f32(1024.0, dev) / norm, const_f32(1.0, dev))
     step = const_f32(lr, dev) * f32(grad_i32) * scale / const_f32(batch_size, dev)
     return saturating_sub_int(weights, _sat_cast_trunc(step, weights.dtype))
@@ -165,7 +180,12 @@ def update_weights_perc_4d(weights, grad_i32, batch_size: int, lr: float, perc: 
 def update_constants_fully_connected(weights, in_zp: int) -> torch.Tensor:
     """Re-fold C2 = in_zp * colsum(W), in wrapping i32, after a weight
     update (``update_layer.rs:199-214``)."""
-    return (weights.to(torch.int64).sum(0) * int(in_zp)).to(torch.int32)
+    return refold_c2(weights.to(torch.int64).sum(0), in_zp)
+
+
+def refold_c2(colsum_i64: torch.Tensor, in_zp: int) -> torch.Tensor:
+    """C2 from W's exact int64 column sums (over all of W's rows)."""
+    return (colsum_i64 * int(in_zp)).to(torch.int32)
 
 
 def accumulate_gradient_2d(current, accum_i32):

@@ -70,7 +70,49 @@ def grads_to_numpy(grads: dict) -> dict:
             for layer, arrays in grads.items()}
 
 
-class TrainableModel(CompiledModel):
+class FoldBound:
+    """C1's host-side bound on the conv/dw weight-gradient accumulators
+    (``_accumulators()``, which the trainer defines), shared by
+    ``TrainableModel`` and ``parallel.tp.ShardedTrainer``: the accumulators
+    start at 0 and a step of B samples moves each entry by at most
+    ``optimizer.fold_margin(B)``; while the bound plus a step's margin stays
+    within i32, the saturating fold is the plain sum, with no device read.
+    The bound holds for the accumulator tensors it was set on, at their
+    version counts then (``_fold_seen``); an accumulator replaced or
+    changed in place since (``grads`` assigned, an entry of it replaced, or
+    written to) has it read from the tensors at the next step."""
+
+    def _accumulators(self) -> list[torch.Tensor]:
+        raise NotImplementedError
+
+    def _set_fold_bound(self, bound: int | None) -> None:
+        self._fold_bound = bound
+        self._fold_seen = [(acc, acc._version) for acc in self._accumulators()]
+
+    def _fold_bound_holds(self) -> bool:
+        """Whether ``_fold_bound`` was set on the accumulators as they are
+        now: the same tensors, none written to since."""
+        return self._fold_bound is not None and all(
+            acc is seen and acc._version == version
+            for acc, (seen, version) in zip(self._accumulators(), self._fold_seen))
+
+    def _accumulator_bound(self) -> int:
+        """The largest |entry| of the accumulators (a device read)."""
+        return max((int(acc.to(torch.int64).abs().max()) for acc in self._accumulators()),
+                   default=0)
+
+    def _step_fold_bound(self) -> int:
+        """The bound a step folds with: the host's where it holds, else
+        read from the accumulators."""
+        return self._fold_bound if self._fold_bound_holds() else self._accumulator_bound()
+
+    def _advance_fold_bound(self, bound: int, batch: int) -> None:
+        """The bound after a step of ``batch`` samples that started at
+        ``bound``; entries never pass |INT_MIN|."""
+        self._set_fold_bound(min(bound + optimizer.fold_margin(batch), 2**31))
+
+
+class TrainableModel(FoldBound, CompiledModel):
     def __init__(
         self,
         graph: Graph,
@@ -118,15 +160,8 @@ class TrainableModel(CompiledModel):
         self._wzp = {layer.index: layer_constants(layer, self.device)["wzp"]
                      for layer in self._backward_layers
                      if isinstance(layer, (Conv2DLayer, DepthwiseConv2DLayer))}
-        # a host-side bound on the conv/dw accumulators' entries: they start
-        # at 0 and a step of B samples moves each by at most
-        # optimizer.fold_margin(B); while the bound plus a step's margin
-        # stays within i32, the saturating fold is the plain sum, with no
-        # device read.  The bound holds for the accumulator tensors it was
-        # set on, at their version counts then (``_fold_seen``); an
-        # accumulator replaced or changed in place since (``grads`` assigned,
-        # an entry of it replaced, or written to) has it read from the
-        # tensors at the next step.
+        # the fold's host bound (``FoldBound``) starts at 0 with the
+        # accumulators
         self._grads = self._init_grads()
         self._set_fold_bound(0)
 
@@ -148,17 +183,6 @@ class TrainableModel(CompiledModel):
                 for layer in self._backward_layers
                 if isinstance(layer, (Conv2DLayer, DepthwiseConv2DLayer))]
 
-    def _set_fold_bound(self, bound: int) -> None:
-        self._fold_bound = bound
-        self._fold_seen = [(acc, acc._version) for acc in self._accumulators()]
-
-    def _fold_bound_holds(self) -> bool:
-        """Whether ``_fold_bound`` was set on the accumulators as they are
-        now: the same tensors, none written to since."""
-        return self._fold_bound is not None and all(
-            acc is seen and acc._version == version
-            for acc, (seen, version) in zip(self._accumulators(), self._fold_seen))
-
     def _init_grads(self) -> dict:
         grads = {}
         for layer in self._backward_layers:
@@ -176,16 +200,6 @@ class TrainableModel(CompiledModel):
                 "c0_gradient": torch.zeros(layer.c0.shape, dtype=torch.float32,
                                            device=self.device)}
         return grads
-
-    def _accumulator_bound(self) -> int:
-        """The largest |entry| of the conv/dw weight-gradient accumulators
-        (a device read)."""
-        bound = 0
-        for layer in self._backward_layers:
-            if isinstance(layer, (Conv2DLayer, DepthwiseConv2DLayer)):
-                acc = self._grads[f"layer{layer.index}"]["weights_gradient"]
-                bound = max(bound, int(acc.to(torch.int64).abs().max()))
-        return bound
 
     # --- the training step ---
 
@@ -296,10 +310,9 @@ class TrainableModel(CompiledModel):
     def predict_quantized_train(self, xq, gt_q, learning_rate: float = 0.0) -> torch.Tensor:
         xq = self._input(xq, torch_dtype(self.graph.input_dtype))
         gt_q = self._input(gt_q, torch_dtype(self.graph.output_dtype))
-        bound = self._fold_bound if self._fold_bound_holds() else self._accumulator_bound()
+        bound = self._step_fold_bound()
         loss_out = self._train_step(xq, gt_q, bound)
-        # entries never pass |INT_MIN|
-        self._set_fold_bound(min(bound + optimizer.fold_margin(xq.shape[0]), 2**31))
+        self._advance_fold_bound(bound, xq.shape[0])
         loss_layer = self.graph.layers[self.loss_index]
         return dequantize(loss_out, loss_layer.out_q.scale0, loss_layer.out_q.zp0)
 

@@ -3,7 +3,7 @@
 the port: a change against its parent.
 
     python3 scripts/torch_sass_diff.py PARENT CHANGE
-        [--source flatpack] [--pair flat_kernelILb0E=flat_kernelILb0E ... | --all]
+        [--source flatpack] [--pair flat_kernelILi0E=flat_kernelILi0E ...] [--all]
 
 PARENT and CHANGE are the roots of two checkouts (a ``git archive`` of each
 will do).  Each builds ``microflow_tpu_torch/csrc/<source>.cu`` with its own
@@ -13,8 +13,10 @@ process of its own; ``cuobjdump -sass`` dumps the library, and each
 left-hand text with the one of CHANGE whose name contains the right-hand
 text, instruction by instruction, addresses and encodings dropped; ``--all``
 pairs every entry function of one name in both (the hash that names an
-anonymous namespace, which follows the source's path, left out) and lists
-those in only one.  Prints
+anonymous namespace, which follows the source's path, left out), and the
+``--pair`` pairs given with it (an instantiation renamed, e.g. the flat
+kernel's ``flat_kernelILb0E=flat_kernelILi0E``), and lists those left in
+only one.  Prints
 one JSON line: per pair the functions' names, their instruction counts,
 whether the code is identical, how many instructions differ and the first
 few that do.  Needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit), no card.
@@ -64,18 +66,22 @@ def main() -> int:
     ap.add_argument("parent")
     ap.add_argument("change")
     ap.add_argument("--source", default="flatpack")
-    ap.add_argument("--pair", nargs="+",
-                    default=["flat_kernelILb0E=flat_kernelILb0E", "flat_kernelILb1E=flat_kernelILb1E"])
+    ap.add_argument("--pair", nargs="+", default=None)
     ap.add_argument("--all", action="store_true")
     args = ap.parse_args()
     old, new = sass(args.parent, args.source), sass(args.change, args.source)
     plain = lambda funcs: {re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", f): f for f in funcs}
     old_by, new_by = plain(old), plain(new)
+    given = args.pair if args.pair is not None or args.all else [
+        f"flat_kernelILi{m}E=flat_kernelILi{m}E" for m in range(5) if m != 1]
+    names = [(pick(old, left), pick(new, right))
+             for left, right in (pair.split("=") for pair in given or [])]
     if args.all:
-        names = [(old_by[n], new_by[n]) for n in sorted(set(old_by) & set(new_by))]
-    else:
-        names = [(pick(old, left), pick(new, right))
-                 for left, right in (pair.split("=") for pair in args.pair)]
+        names += [(old_by[n], new_by[n]) for n in sorted(set(old_by) & set(new_by))]
+        paired_old = {re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", a) for a, _ in names}
+        paired_new = {re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", b) for _, b in names}
+        old_by = {k: v for k, v in old_by.items() if k not in paired_old}
+        new_by = {k: v for k, v in new_by.items() if k not in paired_new}
     pairs = []
     for a, b in names:
         ops = difflib.SequenceMatcher(None, old[a], new[b], autojunk=False).get_opcodes()

@@ -179,6 +179,32 @@ def test_flat_kernel_matches_plain(cuda, name, max_layers, requant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("requant", ["raw", "noround"])
+@pytest.mark.parametrize("name,max_layers", [
+    ("speech", None), ("person_detect", None), ("person_detect", 12), ("conv_graph", None),
+    ("pw_edge_graph", None), ("dw_edge_graph", None), ("noround_edge", None),
+    ("raw_edge", None)])
+def test_flat_measurement_modes_match_plain(cuda, name, max_layers, requant):
+    """The measurement-only epilogues, each its own instantiation
+    (``flat_kernel<R_RAW>``, ``<R_NOROUND>``, counted as ``flatpack_raw``
+    and ``flatpack_noround``), bit-equal to the plain version on every op
+    path, at their edges (``chip_smoke.noround_edge_graph``,
+    ``raw_edge_graph``)."""
+    test_flat_kernel_matches_plain(cuda, name, max_layers, requant)
+
+
+@pytest.mark.cuda
+def test_sharded_speech_step_on_the_card(cuda):
+    """chip_smoke.py's phase 10, shorter: ``ShardedTrainer`` on speech
+    through ``"pallas"`` on meshes that repeat the card, bit-equal to the
+    replicated ``"pallas"`` and ``"xla"`` trainers, a ``qdwconv`` launch a
+    cell a step."""
+    res = chip_smoke.sharded_speech_checks(cuda, batch=64, steps=2)
+    assert res["2x2"]["launches_per_step"] == {"qdwconv": 4}
+    assert res["1x2"]["launches_per_step"] == {"qdwconv": 2}
+
+
+@pytest.mark.cuda
 def test_fixed_refusal_has_no_fallback(cuda, monkeypatch):
     """``MFT_FLAT_REQUANT=fixed`` on a graph whose ``d + bias_q`` leaves
     int32: ``"flat"`` and ``"auto"`` raise; nothing runs in its place."""
@@ -222,6 +248,8 @@ def test_colfc_kernel_matches_plain_on_chains(cuda, spec):
 
 
 def _graph(name):
+    if name in ("noround_edge", "raw_edge"):
+        return getattr(chip_smoke, f"{name}_graph")()
     if name == "conv_graph":
         return chip_smoke.conv_graph(np.random.default_rng(0))
     if name.startswith("fixed_edge_"):

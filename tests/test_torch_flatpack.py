@@ -201,9 +201,12 @@ def test_errors(tmp_path):
     flat_fn, n, meta = build_flat_kernel(g, requant="fixed", device="cpu")
     assert (flat_fn.requant, flat_fn.launch_key, n, meta["out_lanes"]) == (
         "fixed", "flatpack_fixed", 31, 2)
+    # so are the measurement-only "raw" and "noround", each its own
+    # instantiation (tests/test_torch_flatpack_modes.py holds them to JAX)
     for mode in ("raw", "noround"):
-        with pytest.raises(NotImplementedError, match="measurement-only"):
-            build_flat_kernel(g, requant=mode, device="cpu")
+        flat_fn, n, meta = build_flat_kernel(g, requant=mode, device="cpu")
+        assert (flat_fn.requant, flat_fn.launch_key, n, meta["out_lanes"]) == (
+            mode, f"flatpack_{mode}", 31, 2)
     with pytest.raises(ValueError, match="unknown requant"):
         build_flat_kernel(g, requant="nearest", device="cpu")
 

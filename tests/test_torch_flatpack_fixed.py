@@ -296,8 +296,10 @@ def test_builder_reads_mft_flat_requant(monkeypatch):
     plain = CompiledModel(g, backend="xla", device="cpu").predict_inner(x)
     assert torch.equal(CompiledModel(g, backend="flat", device="cpu").predict_inner(x), plain)
     monkeypatch.setenv("MFT_FLAT_REQUANT", "noround")
-    with pytest.raises(NotImplementedError, match="measurement-only"):
-        CompiledModel(g, backend="flat", device="cpu")
+    m = CompiledModel(g, backend="flat", device="cpu")
+    flat_fn, _, _ = build_flat_kernel(g, requant="noround", device="cpu")
+    assert m._flat[0].requant == "noround"
+    assert torch.equal(m._flat[0](x.reshape(2, -1)), flat_fn(x.reshape(2, -1)))
     monkeypatch.setenv("MFT_FLAT_REQUANT", "fixed")
     with pytest.raises(ValueError, match="leaves int32"):
         CompiledModel(guard_graph(2**31 - 1024, 20), backend="flat", device="cpu")

@@ -1,5 +1,5 @@
-"""The torch port stands alone: importing it, ``chip_smoke.py`` or
-``bench_torch.py``, parsing a model (natively) and serving a request loads
+"""The torch port stands alone: importing it, ``chip_smoke.py``,
+``bench_torch.py`` or ``scripts/torch_multiprocess_worker.py``, parsing a model (natively) and serving a request loads
 neither JAX nor any module of ``microflow_tpu``;
 and without CUDA the port's default device raises instead of carrying on on
 the CPU."""
@@ -28,7 +28,10 @@ import microflow_tpu_torch.compiler.expansion
 import microflow_tpu_torch.parallel, microflow_tpu_torch.parallel.executor
 import microflow_tpu_torch.parallel.mesh, microflow_tpu_torch.native
 import microflow_tpu_torch.frontend.native_backend
+import microflow_tpu_torch.parallel.tp, microflow_tpu_torch.parallel.distributed
 import chip_smoke, bench_torch
+sys.path.insert(0, "scripts")
+import torch_multiprocess_worker
 # the lazy imports too: a native parse and fold, and a served request
 from microflow_tpu_torch.models import sine
 server = microflow_tpu_torch.parallel.BatchServer(sine(device="cpu"), max_batch=8)

@@ -186,7 +186,7 @@ def test_expansion_names_every_layer(name, backend, tmp_path):
 
 
 @pytest.mark.parametrize("name,backend,entry", [
-    ("person_detect", "flat", "flat_kernel<false> (csrc/flatpack.cu"),
+    ("person_detect", "flat", "flat_kernel<R_EXACT2> (csrc/flatpack.cu"),
     ("sine", "colfc", "col_kernel (csrc/colfc.cu"),
     ("person_detect", "pallas", "qdwconv_tile (csrc/qdwconv.cu, path stem)"),
 ])

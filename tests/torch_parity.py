@@ -235,6 +235,41 @@ def fixed_chain_sets(jgraph, jparams, ops, x0: np.ndarray) -> dict:
     return counts
 
 
+def trunc_sat(y) -> np.ndarray:
+    """f32 values truncated toward zero and saturated to int8 (the flat
+    kernel's ``noround`` cast, Mosaic's f32 -> int8 convert), as int64."""
+    return np.trunc(np.clip(np.asarray(y, F32), -128, 127)).astype(np.int64)
+
+
+def noround_chain(jgraph, jparams, ops, x0: np.ndarray, contract: bool):
+    """Run the port's flat plan ``ops`` with ``requant="noround"`` op by op
+    (the plain version) on ``x0``; with ``contract``, each conv, dw, pw and
+    fc op's ``bias0 + c1*f32(q)`` is taken as one fused multiply-add
+    (emulated in float64, from the JAX layer's exact accumulator), as XLA
+    on the CPU runs the JAX interpret-mode kernel.  Returns the last op's
+    output and the FMA set along this chain: ``(layer, flat indices)`` of
+    every op where the fused and the separate truncations differ."""
+    from microflow_tpu_torch.kernels.flatpack import flat_forward_reference
+
+    b = x0.shape[0]
+    x, hits = x0.reshape(b, -1), []
+    for op in ops:
+        y = flat_forward_reference([op], torch.from_numpy(x), "noround").numpy()
+        if op.kind in ("dw", "conv", "pw", "fc"):
+            layer = jgraph.layers[op.layer_idx]
+            q, _ = accumulator(layer, jparams, x.reshape(b, *op.in_shape))
+            sep, fma = (trunc_sat(v).reshape(b, -1)
+                        for v in epilogue_values(op.c1, q.astype(F32), op.bias0))
+            assert np.array_equal(sep, y), f"layer {op.layer_idx}: plain is not multiply-then-add"
+            diff = np.flatnonzero(sep != fma)
+            if diff.size:
+                hits.append((op.layer_idx, diff.tolist()))
+            if contract:
+                y = fma.astype(np.int8)
+        x = y
+    return x, hits
+
+
 def teacher_forced(jgraph, tgraph, jparams, tparams, x0: np.ndarray,
                    backends=("xla", "pallas")) -> int:
     """Run every layer of both packages on the JAX layer's input and hold
