@@ -1,0 +1,117 @@
+"""Exact float/integer numeric primitives shared by every op and kernel.
+
+The engine promises bit-parity (or <=1 LSB for softmax) with the MicroFlow
+Rust reference, whose scalar math is:
+
+* ``libm::roundf``  -- round half AWAY from zero (reference
+  ``src/quantize.rs:27``),
+* Rust ``as`` casts from f32 to i8/u8/i32 -- saturating,
+* plain IEEE-754 f32 adds and multiplies, one rounding each, in the
+  reference's association order.
+
+``torch.round`` rounds half to even, and ``floor(y + 0.5)`` is wrong at
+``y = 0.5 - 2**-25`` (the f32 add rounds up to 1), so ``round_away`` is
+built from ``trunc``.  Every f32 constant that enters an op is a tensor on
+the operand's device: PyTorch's CUDA division by a host scalar multiplies
+by its reciprocal, which is not the reference's division.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# Integer range table for saturating casts.
+_INT_INFO = {
+    torch.int8: (-128, 127),
+    torch.uint8: (0, 255),
+    torch.int16: (-32768, 32767),
+    torch.int32: (-(2**31), 2**31 - 1),
+}
+
+_NP_TO_TORCH = {
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.float32): torch.float32,
+}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """numpy dtype (or type) -> torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _NP_TO_TORCH[np.dtype(dtype)]
+
+
+def round_away(y: torch.Tensor) -> torch.Tensor:
+    """f32 round-half-away-from-zero, bit-matching ``libm::roundf``
+    (signed zeros included).
+
+    ``y - trunc(y)`` is exact in f32, so the tie test is exact too.
+    """
+    t = torch.trunc(y)
+    return torch.where(torch.abs(y - t) >= 0.5, t + torch.sign(y), t)
+
+
+def saturating_cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Rust ``as`` float->int cast: clamp to the target range, then convert.
+
+    The input is expected to hold integral values already (post-round).
+    """
+    dtype = torch_dtype(dtype)
+    lo, hi = _INT_INFO[dtype]
+    return torch.clamp(x, lo, hi).to(dtype)
+
+
+def saturating_add_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """i32 saturating add (reference ``accumulate_gradient_4D``,
+    ``src/update_layer.rs:289``): the exact sum in int64, clamped."""
+    lo, hi = _INT_INFO[torch.int32]
+    return torch.clamp(a.to(torch.int64) + b.to(torch.int64), lo, hi).to(torch.int32)
+
+
+def saturating_sub_int(a: torch.Tensor, b) -> torch.Tensor:
+    """Saturating subtract in ``a``'s own integer dtype (reference
+    ``Saturating::saturating_sub`` on i8)."""
+    lo, hi = _INT_INFO[a.dtype]
+    wide = a.to(torch.int64) - b
+    return torch.clamp(wide, lo, hi).to(a.dtype)
+
+
+def sat_cast_nan0(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Rust ``as`` from f32 to an integer type: saturating, NaN -> 0, on
+    integral values.  Clamped in float64, where both rails of int32 are
+    exact: torch's own f32 -> int32 conversion of 2**31 gives INT_MIN on
+    the CPU."""
+    dtype = torch_dtype(dtype)
+    lo, hi = _INT_INFO[dtype]
+    y = torch.clamp(x.to(torch.float64), lo, hi)
+    return torch.where(torch.isnan(y), 0.0, y).to(torch.int64).to(dtype)
+
+
+def f32(x: torch.Tensor) -> torch.Tensor:
+    """Explicit float32 conversion (mirrors ``f32::from_subset``)."""
+    return x.to(torch.float32)
+
+
+def const_f32(value, device) -> torch.Tensor:
+    """An f32 constant (scalar or per-channel vector, host value or
+    tensor) on ``device``."""
+    if torch.is_tensor(value):
+        return value.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(value, np.float32), device=device)
+
+
+def broadcast_per_channel(values, n: int, dtype) -> np.ndarray:
+    """Reference ``.get(i).unwrap_or(arr[0])`` as a static broadcast of a
+    scalar or per-channel host value to ``n`` channels."""
+    values = np.atleast_1d(np.asarray(values))
+    return np.array([values[i] if i < len(values) else values[0] for i in range(n)], dtype)
+
+
+# --- host-side (numpy) epilogue, to hold the kernels to their rounding -------
+
+
