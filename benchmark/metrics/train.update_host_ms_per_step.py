@@ -1,0 +1,9 @@
+"""Host time of the program's span ``mft.train.update`` (``update_layers``'
+update of the trained layers), in ms: the median over the window's steps
+before the traced slice."""
+
+from benchmark.metrics._spans import STEP, median_duration
+
+
+def read(reading):
+    return median_duration(reading, STEP, "mft.train.update", 1e-3)

@@ -75,7 +75,7 @@ import os
 import numpy as np
 import torch
 
-from ..core.numerics import broadcast_per_channel, const_f32, f32, torch_dtype
+from ..core.numerics import as_device, broadcast_per_channel, const_f32, f32, torch_dtype
 from ..core.quantize import dequantize, quantize
 from ..core.tensor import reshape_2d
 from ..ops import (
@@ -88,6 +88,7 @@ from ..ops import (
     softmax,
 )
 from ..ops.conv_2d import im2col
+from ..utils import trace
 from .ir import (
     AveragePool2DLayer,
     Conv2DLayer,
@@ -129,7 +130,7 @@ def params_from_numpy(params: dict, device=None) -> dict:
     -> the same dict of torch tensors on ``device``."""
     device = resolve_device(device)
     return {
-        layer: {k: torch.as_tensor(np.array(v), device=device) for k, v in arrays.items()}
+        layer: {k: as_device(np.array(v), device) for k, v in arrays.items()}
         for layer, arrays in params.items()
     }
 
@@ -149,7 +150,7 @@ def init_params(graph: Graph, device=None) -> dict:
 
 
 def _i32(values, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(values, np.int32), device=device)
+    return as_device(np.asarray(values, np.int32), device)
 
 
 def layer_constants(layer, device) -> dict:
@@ -496,7 +497,7 @@ class CompiledModel:
         return x
 
     def _input(self, x, dtype) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device).to(dtype)
+        return as_device(x, self.device).to(dtype)
 
     # --- public API (mirrors the reference generated model struct) ---
 
@@ -525,7 +526,8 @@ class CompiledModel:
 
     def predict_inner(self, xq) -> torch.Tensor:
         """int [B, *input_shape] -> int [B, *output_shape]."""
-        return self._forward(self._input(xq, torch_dtype(self.graph.input_dtype)))
+        with trace.Span("mft.predict", root=True):
+            return self._forward(self._input(xq, torch_dtype(self.graph.input_dtype)))
 
     def export(self, path: str | None = None) -> bytes:
         """The model with its current params (a ``TrainableModel``'s trained

@@ -14,12 +14,19 @@ Rust reference, whose scalar math is:
 built from ``trunc``.  Every f32 constant that enters an op is a tensor on
 the operand's device: PyTorch's CUDA division by a host scalar multiplies
 by its reciprocal, which is not the reference's division.
+
+Copies between the host and a device go through ``const_f32``,
+``as_device`` and ``read_host``, which count each one that crosses as
+``mft.host_waits`` (``utils/trace.py``): a copy from pageable host memory
+or a read of a device value makes the host wait on the device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils import trace
 
 # Integer range table for saturating casts.
 _INT_INFO = {
@@ -97,12 +104,43 @@ def f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32)
 
 
+def _device_type(device) -> str:
+    if isinstance(device, torch.device):
+        return device.type
+    if isinstance(device, str):
+        return device.split(":", 1)[0]
+    return torch.device(device).type
+
+
+def _crossing(src, dst) -> None:
+    """Count a copy from ``src`` to ``dst`` as a host wait where one of the
+    two is the host and the other is not."""
+    if _device_type(src) != _device_type(dst):
+        trace.count(trace.HOST_WAITS)
+
+
 def const_f32(value, device) -> torch.Tensor:
     """An f32 constant (scalar or per-channel vector, host value or
     tensor) on ``device``."""
     if torch.is_tensor(value):
+        _crossing(value.device, device)
         return value.to(device=device, dtype=torch.float32)
+    _crossing("cpu", device)
     return torch.as_tensor(np.asarray(value, np.float32), device=device)
+
+
+def as_device(value, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(value, dtype, device)``: ``const_f32``'s twin for
+    integer constants (numpy arrays, host values or tensors) and inputs."""
+    _crossing(value.device if torch.is_tensor(value) else "cpu", device)
+    return torch.as_tensor(value, dtype=dtype, device=device)
+
+
+def read_host(t: torch.Tensor) -> torch.Tensor:
+    """``t.cpu()``: a device value read on the host (``int(read_host(t))``
+    for a count or a bound)."""
+    _crossing(t.device, "cpu")
+    return t.cpu()
 
 
 def broadcast_per_channel(values, n: int, dtype) -> np.ndarray:

@@ -9,19 +9,18 @@ network into one kernel (backends ``"flat"`` and ``"colfc"``),
 megakernel (``"fused"``, ``"hybrid"``) and ``build_packed_kernel`` a
 depthwise/pointwise prefix into one launch (``"packed"``).
 ``LAUNCHES`` counts kernel launches by name, so a run can show that its
-main path went through the kernels.
+main path went through the kernels (``utils/trace.py`` keeps it beside
+the port's other counters and its spans).
 """
 
-from collections import Counter
+from ..utils.trace import LAUNCHES
 
-LAUNCHES: Counter = Counter()
-
-from .colfc import build_col_kernel, colfc_reference  # noqa: E402
-from .flatpack import build_flat_kernel, flat_forward_reference  # noqa: E402
-from .megakernel import build_fused_forward, segment_reference  # noqa: E402
-from .packed import build_packed_kernel, packed_reference  # noqa: E402
-from .qdwconv import qdwconv, qdwconv_reference  # noqa: E402
-from .qgemm import qgemm, qgemm_reference  # noqa: E402
+from .colfc import build_col_kernel, colfc_reference
+from .flatpack import build_flat_kernel, flat_forward_reference
+from .megakernel import build_fused_forward, segment_reference
+from .packed import build_packed_kernel, packed_reference
+from .qdwconv import qdwconv, qdwconv_reference
+from .qgemm import qgemm, qgemm_reference
 
 __all__ = ["LAUNCHES", "build_col_kernel", "build_flat_kernel", "build_fused_forward",
            "build_packed_kernel", "colfc_reference", "flat_forward_reference",

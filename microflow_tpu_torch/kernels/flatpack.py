@@ -78,6 +78,7 @@ from ..core.tensor import ViewGeometry, pad_nhwc
 from ..ops import softmax
 from ..ops.conv_2d import conv_2d_accumulate
 from ..ops.depthwise_conv_2d import depthwise_conv_2d_accumulate, window_sum
+from ..utils import trace
 from . import LAUNCHES, build
 
 LANE = 128  # softmax width limit, the JAX package's one-chunk softmax
@@ -659,15 +660,16 @@ class FlatKernel:
             raise ValueError(f"flatpack: x must be contiguous int8 [B, {self.in_lanes}], got "
                              f"{x2.dtype} {tuple(x2.shape)}")
         b = x2.shape[0]
-        out = torch.empty((b, self.out_lanes), dtype=torch.int8, device=x2.device)
-        if b == 0:
-            return out
-        fn = build.library("flatpack").mf_flatpack
-        with torch.cuda.device(x2.device):
-            rc = fn(x2.data_ptr(), out.data_ptr(), b, self.plan.data_ptr(), len(self.ops),
-                    self.in_lanes, self.out_lanes, self.smem_a, self.smem_b,
-                    EPILOGUES[self.requant], torch.cuda.current_stream().cuda_stream)
-        build.check(rc, "flatpack")
+        with trace.Span("mft.flat.launch"):
+            out = torch.empty((b, self.out_lanes), dtype=torch.int8, device=x2.device)
+            if b == 0:
+                return out
+            fn = build.library("flatpack").mf_flatpack
+            with torch.cuda.device(x2.device):
+                rc = fn(x2.data_ptr(), out.data_ptr(), b, self.plan.data_ptr(), len(self.ops),
+                        self.in_lanes, self.out_lanes, self.smem_a, self.smem_b,
+                        EPILOGUES[self.requant], torch.cuda.current_stream().cuda_stream)
+            build.check(rc, "flatpack")
         LAUNCHES[self.launch_key] += 1
         return out
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..core.activation import FusedActivation, apply_fused_activation
-from ..core.numerics import const_f32, f32, round_away, saturating_cast
+from ..core.numerics import as_device, const_f32, f32, round_away, saturating_cast
 from ..core.tensor import ViewGeometry, extract_patches
 
 
@@ -39,7 +39,7 @@ def conv_2d_accumulate(
     over the zp-padded window, float64 [B, OH, OW, F]."""
     nf = filters.shape[0]
     cols = im2col(x, geom, in_zp).to(torch.float64) - float(in_zp)
-    wzp = torch.as_tensor(np.asarray(w_zp), device=x.device).to(torch.float64)
+    wzp = as_device(np.asarray(w_zp), x.device).to(torch.float64)
     wc = filters.to(device=x.device, dtype=torch.float64).reshape(nf, -1) - wzp[:, None]
     q = cols @ wc.T  # [B*OH*OW, F]
     return q.reshape(x.shape[0], geom.out_rows, geom.out_cols, nf)

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..core.activation import FusedActivation, apply_fused_activation
-from ..core.numerics import const_f32, f32, round_away, saturating_cast
+from ..core.numerics import as_device, const_f32, f32, round_away, saturating_cast
 
 
 def fc_partial(x: torch.Tensor, weights: torch.Tensor, *, w_zp: int) -> torch.Tensor:
@@ -35,7 +35,7 @@ def fc_requant(partial: torch.Tensor, *, bias0, c1, c2, c3: int, out_scale: floa
                activation: FusedActivation, out_dtype: torch.dtype) -> torch.Tensor:
     """``q = partial - C2 + C3``, then the epilogue and the activation."""
     dev = partial.device
-    c2 = torch.as_tensor(c2, device=dev).to(torch.float64)
+    c2 = as_device(c2, dev).to(torch.float64)
     q = partial - c2[None, :] + float(c3)
     y = round_away(const_f32(bias0, dev)[None, :] + const_f32(c1, dev) * f32(q))
     y = saturating_cast(y, out_dtype)

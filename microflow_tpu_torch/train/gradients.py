@@ -40,7 +40,14 @@ from ..compiler.ir import (
     FullyConnectedLayer,
 )
 from ..core.activation import FusedActivation, quantize_scalar
-from ..core.numerics import const_f32, f32, round_away, sat_cast_nan0, saturating_sub_int
+from ..core.numerics import (
+    as_device,
+    const_f32,
+    f32,
+    round_away,
+    sat_cast_nan0,
+    saturating_sub_int,
+)
 from ..core.tensor import extract_patches, pad_nhwc
 
 # Terms a float64 dot sums exactly: one operand within 2**8 (an int8 or
@@ -177,7 +184,7 @@ def _crop(geom, frame: torch.Tensor) -> torch.Tensor:
 def _channels(values, device) -> torch.Tensor:
     """A per-channel integer vector (numpy, or a tensor already on
     ``device``) as int64 on ``device``."""
-    return torch.as_tensor(values, device=device).to(torch.int64)
+    return as_device(values, device).to(torch.int64)
 
 
 def _centred_input(layer, x_q) -> torch.Tensor:
@@ -209,8 +216,7 @@ def conv_backward_sample(layer: Conv2DLayer, x_q, out_q, weights, d_out, w_zp_ve
     taps = _taps(geom, KH, KW)
     dw_acc = torch.stack([int_dot(md_t, xc[:, rs, cs].reshape(B, P, C))
                           for _, _, rs, cs in taps], dim=2).reshape(B, F_, KH, KW, C)
-    valid = torch.as_tensor(geom.valid_mask_plane().reshape(P, KH * KW), dtype=torch.int32,
-                            device=dev)
+    valid = as_device(geom.valid_mask_plane().reshape(P, KH * KW), dev, torch.int32)
     norm_w = wrap_i32(int_dot(amd_t, valid)).reshape(B, F_, KH, KW)
     dw_q = sat_cast_nan0(round_away(f32(wrap_i32(dw_acc)) / f32(norm_w)[..., None]), torch.int8)
 
@@ -247,7 +253,7 @@ def conv_backward_sample_scatter(layer: Conv2DLayer, x_q, out_q, weights, d_out,
     patches = extract_patches(x_q, geom, pad_value=in_zp)  # [B,OH,OW,KH,KW,C]
     centered = patches.to(torch.int64) - in_zp
     dw_acc = (centered[:, :, :, None] * md[..., None, None, None]).sum((1, 2))  # [B,F,KH,KW,C]
-    valid = torch.as_tensor(geom.valid_mask_plane(), dtype=torch.int64, device=dev)
+    valid = as_device(geom.valid_mask_plane(), dev, torch.int64)
     norm_w = (valid[None, :, :, None] * amd[..., None, None]).sum((1, 2))  # [B,F,KH,KW]
     dw_q = sat_cast_nan0(round_away(f32(wrap_i32(dw_acc)) / f32(wrap_i32(norm_w))[..., None]),
                          torch.int8)

@@ -23,6 +23,7 @@ import torch
 from ..core.numerics import (
     const_f32,
     f32,
+    read_host,
     round_away,
     sat_cast_nan0,
     saturating_add_i32,
@@ -168,7 +169,7 @@ def update_weights_perc_4d(weights, grad_i32, batch_size: int, lr: float, perc: 
     step = const_f32(lr, dev) * f32(flat_g[idx]) / const_f32(batch_size, dev)
     w = weights.reshape(-1).clone()
     w[idx] = saturating_sub_int(w[idx], _sat_cast_round(step, weights.dtype))
-    extra = max(perc - int((flat_g.abs() > 0).sum()), 0)
+    extra = max(perc - int(read_host((flat_g.abs() > 0).sum())), 0)
     if extra:
         step0 = const_f32(lr, dev) * f32(flat_g[0]) / const_f32(batch_size, dev)
         delta0 = _sat_cast_round(step0, weights.dtype).to(torch.int64)
@@ -226,7 +227,7 @@ def accumulate_gradient_4d_fold(dW_b, accum_i32, bound: int | None = None):
     acc = accum_i32.to(torch.int32)
     if dW_b.dtype == torch.int8:
         if bound is None:
-            bound = int(acc.to(torch.int64).abs().max()) if acc.numel() else 0
+            bound = int(read_host(acc.to(torch.int64).abs().max())) if acc.numel() else 0
         if fold_is_plain_sum(bound, dW_b.shape[0]):
             return (acc.to(torch.int64) + dW_b.to(torch.int64).sum(0)).to(torch.int32)
     for i in range(dW_b.shape[0]):

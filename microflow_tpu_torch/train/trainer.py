@@ -47,9 +47,10 @@ from ..compiler.ir import (
     ReshapeLayer,
     SoftmaxLayer,
 )
-from ..core.numerics import const_f32, f32, torch_dtype
+from ..core.numerics import as_device, const_f32, f32, read_host, torch_dtype
 from ..core.quantize import dequantize, quantize
 from ..core.tensor import reshape_2d
+from ..utils import trace
 from . import gradients, losses, optimizer
 
 # backends whose kernels read weights baked in at build (they refuse a
@@ -98,8 +99,8 @@ class FoldBound:
 
     def _accumulator_bound(self) -> int:
         """The largest |entry| of the accumulators (a device read)."""
-        return max((int(acc.to(torch.int64).abs().max()) for acc in self._accumulators()),
-                   default=0)
+        return max((int(read_host(acc.to(torch.int64).abs().max()))
+                    for acc in self._accumulators()), default=0)
 
     def _step_fold_bound(self) -> int:
         """The bound a step folds with: the host's where it holds, else
@@ -164,6 +165,9 @@ class TrainableModel(FoldBound, CompiledModel):
         # accumulators
         self._grads = self._init_grads()
         self._set_fold_bound(0)
+        # the span of the train step under way: from predict_quantized_train
+        # to the end of update_layers
+        self._step = None
 
     # --- gradient state (the generated struct's *_gradient fields) ---
 
@@ -209,11 +213,18 @@ class TrainableModel(FoldBound, CompiledModel):
         acts = {}
         keep = set(self.backward_indices)
         x = xq
-        for layer in graph.layers:
-            y = apply_layer(layer, params, x, self.backend, self._consts.get(layer.index))
-            if layer.index in keep:
-                acts[layer.index] = (x, y)
-            x = y
+        with trace.Span("mft.train.forward"):
+            for layer in graph.layers:
+                y = apply_layer(layer, params, x, self.backend, self._consts.get(layer.index))
+                if layer.index in keep:
+                    acts[layer.index] = (x, y)
+                x = y
+        with trace.Span("mft.train.backward"):
+            self._backward(acts, gt_q, bound)
+        return acts[self.loss_index][1]
+
+    def _backward(self, acts: dict, gt_q: torch.Tensor, bound: int) -> None:
+        graph, params = self.graph, self.params
         loss_layer = graph.layers[self.loss_index]
         loss_out = acts[self.loss_index][1]
 
@@ -235,41 +246,46 @@ class TrainableModel(FoldBound, CompiledModel):
             lg = grads.get(key)
             x_in, y_out = acts[layer.index]
             if isinstance(layer, FullyConnectedLayer):
-                x2 = reshape_2d(x_in) if layer.flatten_input else x_in
-                if self.gradient_mode == "float":
-                    dW, bias_grad, g = gradients.fc_backward_float(
-                        layer, x2, y_out, params[key]["weights"], g)
-                    # plain f32 accumulation (the twin of accumulate_gradient_2D)
-                    lg["weights_gradient"] = lg["weights_gradient"] + dW
-                else:
-                    dW, bias_grad, g = gradients.fc_backward(
-                        layer, x2, y_out, params[key]["weights"], g)
-                    lg["weights_gradient"] = optimizer.accumulate_gradient_2d(
-                        dW, lg["weights_gradient"])
-                lg["c0_gradient"] = lg["c0_gradient"] + bias_grad
-                if layer.flatten_input:
-                    g = g.reshape(x_in.shape)
+                with trace.Span("mft.train.backward.fc"):
+                    x2 = reshape_2d(x_in) if layer.flatten_input else x_in
+                    if self.gradient_mode == "float":
+                        dW, bias_grad, g = gradients.fc_backward_float(
+                            layer, x2, y_out, params[key]["weights"], g)
+                        # plain f32 accumulation (the twin of accumulate_gradient_2D)
+                        lg["weights_gradient"] = lg["weights_gradient"] + dW
+                    else:
+                        dW, bias_grad, g = gradients.fc_backward(
+                            layer, x2, y_out, params[key]["weights"], g)
+                        lg["weights_gradient"] = optimizer.accumulate_gradient_2d(
+                            dW, lg["weights_gradient"])
+                    lg["c0_gradient"] = lg["c0_gradient"] + bias_grad
+                    if layer.flatten_input:
+                        g = g.reshape(x_in.shape)
             elif isinstance(layer, Conv2DLayer):
-                dW_b, _, g = gradients.conv_backward_sample(
-                    layer, x_in, y_out, params[key]["weights"], g, self._wzp[layer.index])
-                # per-sample saturating accumulation, in batch order; the
-                # conv bias update is disabled in the reference
-                # (gradient_conv_2d.rs:63 commented out)
-                lg["weights_gradient"] = optimizer.accumulate_gradient_4d_fold(
-                    dW_b, lg["weights_gradient"], bound)
+                with trace.Span("mft.train.backward.conv"):
+                    dW_b, _, g = gradients.conv_backward_sample(
+                        layer, x_in, y_out, params[key]["weights"], g, self._wzp[layer.index])
+                    # per-sample saturating accumulation, in batch order; the
+                    # conv bias update is disabled in the reference
+                    # (gradient_conv_2d.rs:63 commented out)
+                    with trace.Span("mft.train.fold"):
+                        lg["weights_gradient"] = optimizer.accumulate_gradient_4d_fold(
+                            dW_b, lg["weights_gradient"], bound)
             elif isinstance(layer, DepthwiseConv2DLayer):
-                dW_b, bias_b, g = gradients.dwconv_backward_sample(
-                    layer, x_in, y_out, params[key]["weights"], g, self._wzp[layer.index])
-                lg["weights_gradient"] = optimizer.accumulate_gradient_4d_fold(
-                    dW_b, lg["weights_gradient"], bound)
-                lg["c0_gradient"] = lg["c0_gradient"] + gradients.exact_f32_sum(bias_b, 0)
+                with trace.Span("mft.train.backward.dwconv"):
+                    dW_b, bias_b, g = gradients.dwconv_backward_sample(
+                        layer, x_in, y_out, params[key]["weights"], g, self._wzp[layer.index])
+                    with trace.Span("mft.train.fold"):
+                        lg["weights_gradient"] = optimizer.accumulate_gradient_4d_fold(
+                            dW_b, lg["weights_gradient"], bound)
+                    lg["c0_gradient"] = lg["c0_gradient"] + gradients.exact_f32_sum(bias_b, 0)
             elif isinstance(layer, AveragePool2DLayer):
-                g = gradients.avgpool_backward_sample(layer, y_out, g)
+                with trace.Span("mft.train.backward.pool"):
+                    g = gradients.avgpool_backward_sample(layer, y_out, g)
             elif isinstance(layer, ReshapeLayer):
                 g = g.reshape(x_in.shape)  # T8: reshape the gradient
             # softmax: forward-only even in train mode (T7)
         self._grads = grads
-        return loss_out
 
     def _update_step(self, batch_size: int, lr: float) -> None:
         params = dict(self.params)
@@ -308,23 +324,44 @@ class TrainableModel(FoldBound, CompiledModel):
         return self.predict_quantized_train(self.quantize_input(x), gt_q, learning_rate)
 
     def predict_quantized_train(self, xq, gt_q, learning_rate: float = 0.0) -> torch.Tensor:
-        xq = self._input(xq, torch_dtype(self.graph.input_dtype))
-        gt_q = self._input(gt_q, torch_dtype(self.graph.output_dtype))
-        bound = self._step_fold_bound()
-        loss_out = self._train_step(xq, gt_q, bound)
-        self._advance_fold_bound(bound, xq.shape[0])
-        loss_layer = self.graph.layers[self.loss_index]
-        return dequantize(loss_out, loss_layer.out_q.scale0, loss_layer.out_q.zp0)
+        self._end_step()  # a step whose update never came ends here
+        step = self._step = trace.Span("mft.train.step", root=True).open()
+        try:
+            xq = self._input(xq, torch_dtype(self.graph.input_dtype))
+            gt_q = self._input(gt_q, torch_dtype(self.graph.output_dtype))
+            with trace.Span("mft.train.fold"):
+                bound = self._step_fold_bound()
+            loss_out = self._train_step(xq, gt_q, bound)
+            self._advance_fold_bound(bound, xq.shape[0])
+            loss_layer = self.graph.layers[self.loss_index]
+            return dequantize(loss_out, loss_layer.out_q.scale0, loss_layer.out_q.zp0)
+        except BaseException:
+            self._end_step()
+            raise
+        finally:
+            step.suspend()  # until update_layers
 
     def update_layers(self, batch_size: int, learning_rate: float) -> None:
-        self._update_step(batch_size, learning_rate)
-        self._set_fold_bound(0)  # accumulators zeroed (update_ops semantics)
+        if self._step is not None:
+            self._step.resume()
+        try:
+            with trace.Span("mft.train.update"):
+                self._update_step(batch_size, learning_rate)
+            self._set_fold_bound(0)  # accumulators zeroed (update_ops semantics)
+        finally:
+            self._end_step()
+
+    def _end_step(self) -> None:
+        """Close the span of the train step under way, if one is."""
+        step, self._step = self._step, None
+        if step is not None:
+            step.close()
 
     def quantize_target(self, y) -> torch.Tensor:
         """Quantize a float target with the loss tensor's output params
         (the examples do this by hand, ``sine_train.rs:41-46``)."""
         layer = self.graph.layers[self.loss_index]
-        y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
+        y = as_device(y, self.device, torch.float32)
         return quantize(y, layer.out_q.scale0, layer.out_q.zp0,
                         dtype=torch_dtype(self.graph.output_dtype))
 

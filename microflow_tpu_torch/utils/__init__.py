@@ -1,21 +1,30 @@
 """Utilities: cost model, cosine similarity, checkpointing, the layer
-table, the expansion dump and a throughput timer (the JAX package's
+table, the expansion dump, a throughput timer (the JAX package's
 ``utils/``, without its XLA executable cache: ``kernels/build.py`` caches
-the built kernels)."""
+the built kernels) and the port's spans and counters (``trace``).
 
-from .checkpoint import load_params, save_params
-from .cosine import cosine_similarity
-from .flops import activation_bytes_per_inference, macs_per_inference, weight_bytes
-from .profiler import dump_expansion, layer_table, time_predict
+Each name below is imported from its module at first use, so that the
+modules that import ``utils.trace`` (``core.numerics`` among them) load
+nothing else of the package with it."""
 
-__all__ = [
-    "activation_bytes_per_inference",
-    "cosine_similarity",
-    "dump_expansion",
-    "layer_table",
-    "load_params",
-    "macs_per_inference",
-    "save_params",
-    "time_predict",
-    "weight_bytes",
-]
+from importlib import import_module
+
+_HOME = {
+    "activation_bytes_per_inference": "flops",
+    "cosine_similarity": "cosine",
+    "dump_expansion": "profiler",
+    "layer_table": "profiler",
+    "load_params": "checkpoint",
+    "macs_per_inference": "flops",
+    "save_params": "checkpoint",
+    "time_predict": "profiler",
+    "weight_bytes": "flops",
+}
+
+__all__ = sorted(_HOME)
+
+
+def __getattr__(name: str):
+    if name in _HOME:
+        return getattr(import_module(f".{_HOME[name]}", __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -23,6 +23,7 @@ import microflow_tpu_torch.kernels.megakernel, microflow_tpu_torch.kernels.packe
 import microflow_tpu_torch.models, microflow_tpu_torch.ops, microflow_tpu_torch.frontend
 import microflow_tpu_torch.train, microflow_tpu_torch.train.trainer
 import microflow_tpu_torch.__main__, microflow_tpu_torch.utils, microflow_tpu_torch.samples
+import microflow_tpu_torch.utils.trace
 import microflow_tpu_torch.models.synth, microflow_tpu_torch.frontend.export
 import microflow_tpu_torch.compiler.expansion
 import microflow_tpu_torch.parallel, microflow_tpu_torch.parallel.executor
