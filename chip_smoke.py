@@ -213,6 +213,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -274,6 +275,7 @@ from microflow_tpu_torch.models import (
 from microflow_tpu_torch.ops.depthwise_conv_2d import window_sum
 from microflow_tpu_torch.parallel import ShardedTrainer, make_mesh
 from microflow_tpu_torch.train import TrainableModel
+from microflow_tpu_torch.utils.trace import COUNTERS, EAGER_STEPS, GRAPH_STEPS
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # int8 tensor-core operations/s.
@@ -1702,13 +1704,16 @@ def train_checks(dev, batch: int = 256, steps: int = 3) -> dict:
     grads after every step and params after every update must be
     bit-equal.  Returns, a case, each trained layer's count of nonzero
     weight-gradient entries after each step (every layer must have some in
-    one step at least) and the kernel launches of each backend's steps."""
+    one step at least), the kernel launches of each backend's steps, and
+    how many of each backend's steps replayed as CUDA graphs and how many
+    ran eager (on the card the first eager, the others replayed)."""
     out = {}
     for name, mode in TRAIN_CASES:
         mp, mx = (trainer(name, b, mode, dev) for b in ("pallas", "xla"))
         mx.params = {k: {kk: v.clone() for kk, v in d.items()} for k, d in mp.params.items()}
         gen = torch.Generator().manual_seed(15)
         nonzero, launches = [], {}
+        kinds = {b: Counter() for b in ("pallas", "xla")}
         for step in range(steps):
             xq, gt = train_batch(mp, batch, gen)
             for backend, m in (("pallas", mp), ("xla", mx)):
@@ -1720,14 +1725,18 @@ def train_checks(dev, batch: int = 256, steps: int = 3) -> dict:
             _same_state(mp.grads, mx.grads, f"{name}/{mode} pallas vs xla, grads after step {step}")
             nonzero.append({k: int(v["weights_gradient"].count_nonzero())
                             for k, v in mp.grads.items()})
-            mp.update_layers(batch, TRAIN_LR)
-            mx.update_layers(batch, TRAIN_LR)
+            for backend, m in (("pallas", mp), ("xla", mx)):
+                before = dict(COUNTERS)
+                m.update_layers(batch, TRAIN_LR)  # the step ends, and is counted
+                for kind, counter in (("graph", GRAPH_STEPS), ("eager", EAGER_STEPS)):
+                    kinds[backend][kind] += COUNTERS[counter] - before[counter]
             _same_state(mp.params, mx.params,
                         f"{name}/{mode} pallas vs xla, params after update {step}")
         dead = [k for k in nonzero[0] if not any(n[k] for n in nonzero)]
         if dead:
             raise AssertionError(f"{name}/{mode}: no gradient reached {dead} in {steps} steps")
-        out[f"{name}/{mode}"] = {"nonzero_weight_gradients": nonzero, "launches": launches}
+        out[f"{name}/{mode}"] = {"nonzero_weight_gradients": nonzero, "launches": launches,
+                                 "steps": {b: dict(k) for b, k in kinds.items()}}
     return out
 
 
@@ -2612,11 +2621,15 @@ def main() -> int:
     if any(n != PD_FORWARD for n in pd_step["pallas"]) or any(pd_step["xla"]):
         raise AssertionError(f"person_detect train steps launched {pd_step}, expected "
                              f"{PD_FORWARD} a step through pallas and nothing through xla")
+    kinds = {case: res["steps"] for case, res in train.items()}
+    if any(k != {"graph": 2, "eager": 1} for case in kinds.values() for k in case.values()):
+        raise AssertionError(f"train steps {kinds}: expected the first eager and the other "
+                             "two replayed as CUDA graphs, a case and backend")
     torch.cuda.empty_cache()
     emit({"phase": "train", "batch": 256, "steps": 3, "lr": TRAIN_LR,
           "tolerance": "bit-equal (pallas vs xla: grads after every step, params after "
           "every update)", "cases": train,
-          "person_detect_step_launches": pd_step["pallas"][0],
+          "person_detect_step_launches": pd_step["pallas"][0], "graph_and_eager_steps": kinds,
           "timing": time_training(dev, smi), "seconds": round(time.time() - t, 1)})
     torch.cuda.empty_cache()
     # 8. the user-facing entry points

@@ -16,12 +16,21 @@ the operand's device: PyTorch's CUDA division by a host scalar multiplies
 by its reciprocal, which is not the reference's division.
 
 Copies between the host and a device go through ``const_f32``,
-``as_device`` and ``read_host``, which count each one that crosses as
-``mft.host_waits`` (``utils/trace.py``): a copy from pageable host memory
-or a read of a device value makes the host wait on the device.
+``const_int``, ``as_device`` and ``read_host``, which count each one that
+crosses as ``mft.host_waits`` (``utils/trace.py``): a copy from pageable
+host memory or a read of a device value makes the host wait on the device.
+A constant (a host value given to ``const_f32`` or ``const_int``) is
+copied once a device: later calls with the same bits get the same
+resident tensor, which no caller writes, so that a step makes no copy
+from the host and a CUDA graph can capture it.  ``as_device`` copies
+every time: an input stays the caller's.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -119,21 +128,81 @@ def _crossing(src, dst) -> None:
         trace.count(trace.HOST_WAITS)
 
 
+def _upload(value, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(value, dtype, device)`` of a host value: the one
+    place a host value is copied to a device."""
+    _crossing("cpu", device)
+    return torch.as_tensor(value, dtype=dtype, device=device)
+
+
+# Resident constants: (numpy dtype, shape, bytes, torch dtype, device) ->
+# the tensor, the most recently used last.  Past RESIDENT_CAP the least
+# recently used is dropped; a CUDA graph keeps those it captured
+# (``pinned``), so that none is freed under it.
+RESIDENT_CAP = 4096
+_resident: OrderedDict = OrderedDict()
+_resident_lock = threading.Lock()
+_pins = threading.local()
+
+
+def _constant(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(arr, dtype, device)`` of a host constant, copied to
+    ``device`` the first time its bits are asked for there."""
+    device = torch.device(device)
+    key = (arr.dtype.str, arr.shape, arr.tobytes(), dtype, device)
+    with _resident_lock:
+        t = _resident.get(key)
+        if t is not None:
+            _resident.move_to_end(key)
+    if t is None:
+        # a copy of the array: on the CPU as_tensor would share its memory,
+        # and the caller may change it later
+        t = _upload(np.array(arr), device, dtype)
+        with _resident_lock:
+            t = _resident.setdefault(key, t)
+            while len(_resident) > RESIDENT_CAP:
+                _resident.popitem(last=False)
+    pins = getattr(_pins, "list", None)
+    if pins is not None:
+        pins.append(t)
+    return t
+
+
+@contextlib.contextmanager
+def pinned():
+    """Collect the resident constants that this thread is given inside, in
+    a list: whatever holds the list (a captured CUDA graph) keeps them."""
+    outer = getattr(_pins, "list", None)
+    _pins.list = []
+    try:
+        yield _pins.list
+    finally:
+        _pins.list = outer
+
+
 def const_f32(value, device) -> torch.Tensor:
     """An f32 constant (scalar or per-channel vector, host value or
-    tensor) on ``device``."""
+    tensor) on ``device``; a host value is resident after its first use."""
     if torch.is_tensor(value):
         _crossing(value.device, device)
         return value.to(device=device, dtype=torch.float32)
-    _crossing("cpu", device)
-    return torch.as_tensor(np.asarray(value, np.float32), device=device)
+    return _constant(np.asarray(value, np.float32), device)
+
+
+def const_int(value, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(value, dtype, device)`` of an integer host constant
+    (a scalar, list or numpy array), resident after its first use:
+    ``const_f32``'s twin."""
+    return _constant(np.asarray(value), device, dtype)
 
 
 def as_device(value, device, dtype=None) -> torch.Tensor:
-    """``torch.as_tensor(value, dtype, device)``: ``const_f32``'s twin for
-    integer constants (numpy arrays, host values or tensors) and inputs."""
-    _crossing(value.device if torch.is_tensor(value) else "cpu", device)
-    return torch.as_tensor(value, dtype=dtype, device=device)
+    """``torch.as_tensor(value, dtype, device)`` of an input (a numpy
+    array, host value or tensor), copied at every call."""
+    if torch.is_tensor(value):
+        _crossing(value.device, device)
+        return torch.as_tensor(value, dtype=dtype, device=device)
+    return _upload(value, device, dtype)
 
 
 def read_host(t: torch.Tensor) -> torch.Tensor:

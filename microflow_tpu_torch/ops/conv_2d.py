@@ -15,11 +15,10 @@ for 1x1 stride-1 convs) and one float64 matrix product, exact while
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..core.activation import FusedActivation, apply_fused_activation
-from ..core.numerics import as_device, const_f32, f32, round_away, saturating_cast
+from ..core.numerics import const_f32, const_int, f32, round_away, saturating_cast
 from ..core.tensor import ViewGeometry, extract_patches
 
 
@@ -39,7 +38,7 @@ def conv_2d_accumulate(
     over the zp-padded window, float64 [B, OH, OW, F]."""
     nf = filters.shape[0]
     cols = im2col(x, geom, in_zp).to(torch.float64) - float(in_zp)
-    wzp = as_device(np.asarray(w_zp), x.device).to(torch.float64)
+    wzp = const_int(w_zp, x.device).to(torch.float64)
     wc = filters.to(device=x.device, dtype=torch.float64).reshape(nf, -1) - wzp[:, None]
     q = cols @ wc.T  # [B*OH*OW, F]
     return q.reshape(x.shape[0], geom.out_rows, geom.out_cols, nf)

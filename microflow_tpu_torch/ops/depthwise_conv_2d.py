@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..core.activation import FusedActivation, apply_fused_activation
-from ..core.numerics import as_device, const_f32, f32, round_away, saturating_cast
+from ..core.numerics import const_f32, const_int, f32, round_away, saturating_cast
 from ..core.tensor import ViewGeometry, pad_nhwc
 
 
@@ -43,7 +43,7 @@ def depthwise_conv_2d_accumulate(
 ) -> torch.Tensor:
     """Exact i32 ``q[b,i,j,c] = sum_mn (x[..,c]-in_zp)(w[m,n,c]-w_zp[c])``
     over the zp-padded window."""
-    wzp = as_device(np.asarray(w_zp, np.int32), x.device)
+    wzp = const_int(np.asarray(w_zp, np.int32), x.device)
     wc = weights.to(device=x.device, dtype=torch.int32) - wzp[None, None, :]
     xc = pad_nhwc(x, geom, in_zp).to(torch.int32) - int(in_zp)
     return window_sum(xc, wc, geom)
@@ -68,7 +68,7 @@ def depthwise_conv_2d(
     if in_c not in (1, ch):
         # reference channel fallback: channel c of the view, or channel 0
         # if the input has fewer channels than the weights
-        chan_idx = as_device([c if c < in_c else 0 for c in range(ch)], x.device)
+        chan_idx = const_int([c if c < in_c else 0 for c in range(ch)], x.device)
         x = x[..., chan_idx]
     # in_c == 1 < ch is the depth-multiplier stem: every output channel
     # reads input channel 0, which broadcasts over the CH weight channels

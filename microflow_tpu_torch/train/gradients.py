@@ -43,6 +43,7 @@ from ..core.activation import FusedActivation, quantize_scalar
 from ..core.numerics import (
     as_device,
     const_f32,
+    const_int,
     f32,
     round_away,
     sat_cast_nan0,
@@ -184,7 +185,8 @@ def _crop(geom, frame: torch.Tensor) -> torch.Tensor:
 def _channels(values, device) -> torch.Tensor:
     """A per-channel integer vector (numpy, or a tensor already on
     ``device``) as int64 on ``device``."""
-    return as_device(values, device).to(torch.int64)
+    t = as_device(values, device) if torch.is_tensor(values) else const_int(values, device)
+    return t.to(torch.int64)
 
 
 def _centred_input(layer, x_q) -> torch.Tensor:
@@ -216,7 +218,7 @@ def conv_backward_sample(layer: Conv2DLayer, x_q, out_q, weights, d_out, w_zp_ve
     taps = _taps(geom, KH, KW)
     dw_acc = torch.stack([int_dot(md_t, xc[:, rs, cs].reshape(B, P, C))
                           for _, _, rs, cs in taps], dim=2).reshape(B, F_, KH, KW, C)
-    valid = as_device(geom.valid_mask_plane().reshape(P, KH * KW), dev, torch.int32)
+    valid = const_int(geom.valid_mask_plane().reshape(P, KH * KW), dev, torch.int32)
     norm_w = wrap_i32(int_dot(amd_t, valid)).reshape(B, F_, KH, KW)
     dw_q = sat_cast_nan0(round_away(f32(wrap_i32(dw_acc)) / f32(norm_w)[..., None]), torch.int8)
 
@@ -253,7 +255,7 @@ def conv_backward_sample_scatter(layer: Conv2DLayer, x_q, out_q, weights, d_out,
     patches = extract_patches(x_q, geom, pad_value=in_zp)  # [B,OH,OW,KH,KW,C]
     centered = patches.to(torch.int64) - in_zp
     dw_acc = (centered[:, :, :, None] * md[..., None, None, None]).sum((1, 2))  # [B,F,KH,KW,C]
-    valid = as_device(geom.valid_mask_plane(), dev, torch.int64)
+    valid = const_int(geom.valid_mask_plane(), dev, torch.int64)
     norm_w = (valid[None, :, :, None] * amd[..., None, None]).sum((1, 2))  # [B,F,KH,KW]
     dw_q = sat_cast_nan0(round_away(f32(wrap_i32(dw_acc)) / f32(wrap_i32(norm_w))[..., None]),
                          torch.int8)

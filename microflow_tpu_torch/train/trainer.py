@@ -24,6 +24,20 @@ JAX package) or ``"pallas"``, the per-op kernels ``qgemm`` and
 ``qdwconv`` on CUDA.  The backward and the update are plain torch on the
 model's device.  The whole-network backends bake the weights into their
 kernels' plans and so cannot train: asking for one raises.
+
+On CUDA the step's three phases replay as CUDA graphs (``graphs.py``):
+the forward with the dequantize of the loss output, the backward with the
+plain-sum fold, and the update.  The first step at a new key
+(``graphs.step_key``: the input's and labels' shapes and dtypes and the
+gradient mode; ``graphs.update_key``: the batch size and learning rate)
+runs the eager code, the second captures and replays, later ones replay.
+A CPU model, the serial saturating fold and a fold bound read from the
+device run the eager code.  The graphs read and write static trees; the
+model's ``params`` and ``grads`` are then copies made when first asked for
+(no later step writes a tensor handed out), and a tree assigned or written
+between steps is copied in before the next replay.  ``utils.trace``
+counts each step that replayed all three phases
+(``mft.train.graph_steps``) and each other one (``mft.train.eager_steps``).
 """
 
 from __future__ import annotations
@@ -51,7 +65,7 @@ from ..core.numerics import as_device, const_f32, f32, read_host, torch_dtype
 from ..core.quantize import dequantize, quantize
 from ..core.tensor import reshape_2d
 from ..utils import trace
-from . import gradients, losses, optimizer
+from . import gradients, graphs, losses, optimizer
 
 # backends whose kernels read weights baked in at build (they refuse a
 # ``params`` swap, ``CompiledModel.params``)
@@ -165,14 +179,37 @@ class TrainableModel(FoldBound, CompiledModel):
         # accumulators
         self._grads = self._init_grads()
         self._set_fold_bound(0)
+        # the CUDA graphs of the step (``graphs.py``), made as steps come:
+        # the trees they read and write; a step key's WARM, FAILED or (input
+        # buffer, label buffer, forward, backward); an update key's WARM,
+        # FAILED or graph
+        self._static = graphs.StaticTrees()
+        self._step_graphs: dict = {}
+        self._update_graphs: dict = {}
         # the span of the train step under way: from predict_quantized_train
-        # to the end of update_layers
+        # to the end of update_layers, and how many of its phases replayed
         self._step = None
+        self._replayed = 0
 
-    # --- gradient state (the generated struct's *_gradient fields) ---
+    # --- state: the model's own trees, or the graphs' static ones ---
+
+    @property
+    def params(self) -> dict:
+        if self._params is None:  # the last update replayed into the static tree
+            self._params = self._static.hand_out("params")
+        return self._params
+
+    @params.setter
+    def params(self, params: dict) -> None:
+        self._params = params
 
     @property
     def grads(self) -> dict:
+        if self._grads is None:  # the last phase replayed into the static tree
+            holds = self._fold_bound_holds()
+            self._grads = self._static.hand_out("grads")
+            if holds:  # the copies are the accumulators now
+                self._set_fold_bound(self._fold_bound)
         return self._grads
 
     @grads.setter
@@ -183,7 +220,8 @@ class TrainableModel(FoldBound, CompiledModel):
     def _accumulators(self) -> list[torch.Tensor]:
         """The conv/dw weight-gradient accumulators, which the fold's bound
         covers."""
-        return [self._grads[f"layer{layer.index}"]["weights_gradient"]
+        grads = self._grads if self._grads is not None else self._static.trees["grads"]
+        return [grads[f"layer{layer.index}"]["weights_gradient"]
                 for layer in self._backward_layers
                 if isinstance(layer, (Conv2DLayer, DepthwiseConv2DLayer))]
 
@@ -205,26 +243,29 @@ class TrainableModel(FoldBound, CompiledModel):
                                            device=self.device)}
         return grads
 
-    # --- the training step ---
+    # --- the step's phases, on the trees they are given ---
 
-    def _train_step(self, xq: torch.Tensor, gt_q: torch.Tensor, bound: int) -> torch.Tensor:
-        graph, params = self.graph, self.params
-        # forward, saving (input, output) of every backward layer
+    def _forward_phase(self, params: dict, xq: torch.Tensor) -> tuple[dict, torch.Tensor]:
+        """The forward, saving (input, output) of every backward layer, and
+        the loss layer's output dequantized: (acts, output)."""
         acts = {}
         keep = set(self.backward_indices)
         x = xq
-        with trace.Span("mft.train.forward"):
-            for layer in graph.layers:
-                y = apply_layer(layer, params, x, self.backend, self._consts.get(layer.index))
-                if layer.index in keep:
-                    acts[layer.index] = (x, y)
-                x = y
-        with trace.Span("mft.train.backward"):
-            self._backward(acts, gt_q, bound)
-        return acts[self.loss_index][1]
+        for layer in self.graph.layers:
+            y = apply_layer(layer, params, x, self.backend, self._consts.get(layer.index))
+            if layer.index in keep:
+                acts[layer.index] = (x, y)
+            x = y
+        loss_layer = self.graph.layers[self.loss_index]
+        return acts, dequantize(acts[self.loss_index][1], loss_layer.out_q.scale0,
+                                loss_layer.out_q.zp0)
 
-    def _backward(self, acts: dict, gt_q: torch.Tensor, bound: int) -> None:
-        graph, params = self.graph, self.params
+    def _backward_phase(self, params: dict, acts: dict, gt_q: torch.Tensor, grads: dict,
+                        bound: int) -> dict:
+        """The loss gradient and every backward layer's, folded into the
+        accumulators: the new grads tree (a leaf no layer changed stays the
+        tensor it was)."""
+        graph = self.graph
         loss_layer = graph.layers[self.loss_index]
         loss_out = acts[self.loss_index][1]
 
@@ -240,7 +281,7 @@ class TrainableModel(FoldBound, CompiledModel):
             g = const_f32(loss_layer.out_q.scale0, g.device) * f32(g)
 
         # backward in reverse layer order (T1's token prepending)
-        grads = {k: dict(v) for k, v in self._grads.items()}
+        grads = {k: dict(v) for k, v in grads.items()}
         for layer in reversed(self._backward_layers):
             key = f"layer{layer.index}"
             lg = grads.get(key)
@@ -285,11 +326,18 @@ class TrainableModel(FoldBound, CompiledModel):
             elif isinstance(layer, ReshapeLayer):
                 g = g.reshape(x_in.shape)  # T8: reshape the gradient
             # softmax: forward-only even in train mode (T7)
-        self._grads = grads
+        return grads
 
-    def _update_step(self, batch_size: int, lr: float) -> None:
-        params = dict(self.params)
-        grads = dict(self._grads)
+    def _updated_keys(self, grads: dict) -> list[str]:
+        """The layers an update changes: the backward layers with
+        accumulators."""
+        return [key for key in (f"layer{layer.index}" for layer in self._backward_layers)
+                if key in grads]
+
+    def _update_phase(self, params: dict, grads: dict, batch_size: int, lr: float) -> dict:
+        """The params tree after the update of ``_updated_keys(grads)``; the
+        caller zeroes their accumulators."""
+        params = dict(params)
         for layer in self._backward_layers:
             key = f"layer{layer.index}"
             if key not in grads:
@@ -311,9 +359,116 @@ class TrainableModel(FoldBound, CompiledModel):
                 p["c0"] = optimizer.update_weights_2d_float(
                     p["c0"], g["c0_gradient"], batch_size, lr)
             params[key] = p
-            grads[key] = {k: torch.zeros_like(v) for k, v in g.items()}
-        self.params = params
-        self._grads = grads
+        return params
+
+    # --- the step: eager, or replayed ---
+
+    def _sync_static(self) -> bool:
+        """Copy the model's own trees, where it holds them, into the static
+        ones; False where they no longer fit them."""
+        static = self._static
+        return ((self._params is None or static.sync("params", self._params))
+                and (self._grads is None or static.sync("grads", self._grads)))
+
+    def _capture_step(self, xq: torch.Tensor, gt_q: torch.Tensor, bound: int):
+        """The forward and backward graphs of ``xq``'s and ``gt_q``'s key,
+        with their input and label buffers, in one memory pool (they always
+        replay in the order they were captured)."""
+        trees = self._static.trees
+        params, grads = trees["params"], trees["grads"]
+        x = torch.empty(xq.shape, dtype=xq.dtype, device=xq.device)
+        gt = torch.empty(gt_q.shape, dtype=gt_q.dtype, device=gt_q.device)
+        pool = torch.cuda.graph_pool_handle()
+        forward = graphs.capture("forward", lambda: self._forward_phase(params, x), pool)
+        if forward is graphs.FAILED:
+            return forward
+
+        def backward():
+            graphs.copy_tree(grads, self._backward_phase(params, forward.out[0], gt, grads,
+                                                         bound))
+
+        backward = graphs.capture("backward", backward, pool)
+        if backward is graphs.FAILED:
+            return backward
+        return x, gt, forward, backward
+
+    def _replayed_step(self, xq: torch.Tensor, gt_q: torch.Tensor, bound: int | None):
+        """The step's forward and backward replayed, and the output; None
+        where the step runs the eager code (its key is None, seen for the
+        first time, or failed to capture; or the trees no longer fit)."""
+        key = graphs.step_key(self.device, xq, gt_q, self.gradient_mode, bound)
+        if key is None:
+            return None
+        steps = self._step_graphs
+        entry = steps.get(key)
+        if entry is None:
+            steps[key] = graphs.WARM
+            return None
+        if entry is graphs.FAILED or not self._sync_static():
+            return None
+        if entry is graphs.WARM:
+            entry = steps[key] = self._capture_step(xq, gt_q, bound)
+            if entry is graphs.FAILED:
+                return None
+        x, gt, forward, backward = entry
+        with trace.Span("mft.train.forward"):
+            x.copy_(xq)
+            out = forward.replay()[1]
+        with trace.Span("mft.train.backward"):
+            gt.copy_(gt_q)
+            backward.replay()
+        self._grads = None
+        self._replayed = 2
+        return out.clone()
+
+    def _eager_step(self, xq: torch.Tensor, gt_q: torch.Tensor, bound: int) -> torch.Tensor:
+        params = self.params
+        with trace.Span("mft.train.forward"):
+            acts, out = self._forward_phase(params, xq)
+        with trace.Span("mft.train.backward"):
+            self._grads = self._backward_phase(params, acts, gt_q, self.grads, bound)
+        return out
+
+    def _capture_update(self, batch_size: int, lr: float):
+        """The update's graph at ``batch_size`` and ``lr``."""
+        trees = self._static.trees
+        params, grads = trees["params"], trees["grads"]
+
+        def update():
+            graphs.copy_tree(params, self._update_phase(params, grads, batch_size, lr))
+            for key in self._updated_keys(grads):
+                for t in grads[key].values():
+                    t.zero_()
+
+        return graphs.capture("update", update, torch.cuda.graph_pool_handle())
+
+    def _replayed_update(self, batch_size: int, lr: float) -> bool:
+        """The update replayed; False where it runs the eager code (as
+        ``_replayed_step``)."""
+        key = graphs.update_key(self.device, batch_size, lr)
+        if key is None:
+            return False
+        updates = self._update_graphs
+        entry = updates.get(key)
+        if entry is None:
+            updates[key] = graphs.WARM
+            return False
+        if entry is graphs.FAILED or not self._sync_static():
+            return False
+        if entry is graphs.WARM:
+            entry = updates[key] = self._capture_update(batch_size, lr)
+            if entry is graphs.FAILED:
+                return False
+        entry.replay()
+        self._params = self._grads = None
+        self._replayed += 1
+        return True
+
+    def _eager_update(self, batch_size: int, lr: float) -> None:
+        grads = self.grads
+        self.params = self._update_phase(self.params, grads, batch_size, lr)
+        self._grads = {**grads, **{key: {k: torch.zeros_like(v) for k, v in grads[key].items()}
+                                   for key in self._updated_keys(grads)}}
 
     # --- public API (mirrors the generated train struct) ---
 
@@ -330,11 +485,13 @@ class TrainableModel(FoldBound, CompiledModel):
             xq = self._input(xq, torch_dtype(self.graph.input_dtype))
             gt_q = self._input(gt_q, torch_dtype(self.graph.output_dtype))
             with trace.Span("mft.train.fold"):
-                bound = self._step_fold_bound()
-            loss_out = self._train_step(xq, gt_q, bound)
+                on_host = self._fold_bound_holds()
+                bound = self._fold_bound if on_host else self._accumulator_bound()
+            out = self._replayed_step(xq, gt_q, bound if on_host else None)
+            if out is None:
+                out = self._eager_step(xq, gt_q, bound)
             self._advance_fold_bound(bound, xq.shape[0])
-            loss_layer = self.graph.layers[self.loss_index]
-            return dequantize(loss_out, loss_layer.out_q.scale0, loss_layer.out_q.zp0)
+            return out
         except BaseException:
             self._end_step()
             raise
@@ -346,15 +503,19 @@ class TrainableModel(FoldBound, CompiledModel):
             self._step.resume()
         try:
             with trace.Span("mft.train.update"):
-                self._update_step(batch_size, learning_rate)
+                if not self._replayed_update(batch_size, learning_rate):
+                    self._eager_update(batch_size, learning_rate)
             self._set_fold_bound(0)  # accumulators zeroed (update_ops semantics)
         finally:
             self._end_step()
 
     def _end_step(self) -> None:
-        """Close the span of the train step under way, if one is."""
+        """Close the span of the train step under way, if one is, counting
+        it as a graph step (all three phases replayed) or an eager one."""
         step, self._step = self._step, None
         if step is not None:
+            trace.count(trace.GRAPH_STEPS if self._replayed == 3 else trace.EAGER_STEPS)
+            self._replayed = 0
             step.close()
 
     def quantize_target(self, y) -> torch.Tensor:

@@ -8,9 +8,10 @@ A span times one layer of a call on the host's clock::
 Each closed span leaves a ``Record``: its start and end
 (``time.perf_counter_ns``), the name of the span open around it on the
 same thread, the identifier of the train step or ``predict_inner`` call
-it belongs to, and the ``mft.host_waits`` counted while it was open.  A
-span opened with ``root=True``, or with no span open around it, takes
-the next identifier of its own name; every other span takes its parent's.
+it belongs to, the ``mft.host_waits`` counted while it was open, and
+what the other ``COUNTERS`` counted while it was open.  A span opened
+with ``root=True``, or with no span open around it, takes the next
+identifier of its own name; every other span takes its parent's.
 The records go into a buffer per span name that keeps the newest
 ``CAP``; ``records(name)`` reads it.
 
@@ -25,9 +26,12 @@ the trace would count as device work.  No span reads the device or waits
 for it.
 
 Counters: ``LAUNCHES``, kernel launches by kernel name (each kernel's
-wrapper counts its own), and ``COUNTERS[HOST_WAITS]``, each copy between
-the host and a device that the program makes through
-``core.numerics``' ``const_f32``, ``as_device`` and ``read_host``.
+wrapper counts its own, and a replayed CUDA graph those it captured);
+``COUNTERS[HOST_WAITS]``, each copy between the host and a device that
+the program makes through ``core.numerics``' ``const_f32``, ``const_int``,
+``as_device`` and ``read_host``; ``COUNTERS[GRAPH_STEPS]``, each train
+step that replayed its forward, backward and update as CUDA graphs, and
+``COUNTERS[EAGER_STEPS]``, each other train step (``train/trainer.py``).
 ``snapshot()`` gives an operator each span's count, median and total and
 the counters, as ``BatchServer.stats()`` does for the server.
 """
@@ -44,9 +48,11 @@ import torch
 
 CAP = 8192  # records kept a span name, the newest
 HOST_WAITS = "mft.host_waits"
+GRAPH_STEPS = "mft.train.graph_steps"
+EAGER_STEPS = "mft.train.eager_steps"
 
 LAUNCHES: Counter = Counter()
-COUNTERS: Counter = Counter({HOST_WAITS: 0})
+COUNTERS: Counter = Counter({HOST_WAITS: 0, GRAPH_STEPS: 0, EAGER_STEPS: 0})
 
 
 class Record(NamedTuple):
@@ -55,6 +61,7 @@ class Record(NamedTuple):
     parent: str | None  # the name of the span open around this one
     ident: int  # the train step or predict_inner call it belongs to
     waits: int  # COUNTERS[HOST_WAITS] counted while it was open
+    counts: tuple = ()  # (name, count) of the other COUNTERS that moved while it was open
 
 
 _records: dict[str, deque] = {}  # name -> deque of Record's fields, as tuples
@@ -86,7 +93,7 @@ class Span:
     ``resume`` take it off its thread's stack of open spans between the
     calls, so that nothing the caller does between them nests in it."""
 
-    __slots__ = ("name", "root", "parent", "ident", "start", "waits", "_stack", "_rf")
+    __slots__ = ("name", "root", "parent", "ident", "start", "counters", "_stack", "_rf")
 
     def __init__(self, name: str, root: bool = False):
         self.name = name
@@ -106,7 +113,7 @@ class Span:
             self._rf = record_function(self.name)
             self._rf.__enter__()
         self.resume()
-        self.waits = COUNTERS[HOST_WAITS]
+        self.counters = dict(COUNTERS)
         self.start = time.perf_counter_ns()
         return self
 
@@ -123,12 +130,15 @@ class Span:
 
     def close(self) -> None:
         end = time.perf_counter_ns()
-        waits = COUNTERS[HOST_WAITS] - self.waits
+        before, now = self.counters, dict(COUNTERS)
+        waits = now[HOST_WAITS] - before[HOST_WAITS]
+        counts = tuple((k, n - before.get(k, 0)) for k, n in now.items()
+                       if k != HOST_WAITS and n != before.get(k, 0))
         self.suspend()
         if self._rf is not None:
             self._rf.__exit__(None, None, None)
             self._rf = None
-        rec = (self.start, end, self.parent, self.ident, waits)
+        rec = (self.start, end, self.parent, self.ident, waits, counts)
         with _lock:
             buf = _records.get(self.name)
             if buf is None:

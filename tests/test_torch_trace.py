@@ -6,6 +6,7 @@ holds ``mft.host_waits`` to the profiler's count of pageable copies on the
 card.  This file imports neither JAX nor ``microflow_tpu``."""
 
 import gc
+from collections import OrderedDict
 
 import numpy as np
 import pytest
@@ -248,19 +249,32 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_host_waits_equal_the_profilers_pageable_copies_of_a_step(cuda):
+def test_host_waits_equal_the_profilers_pageable_copies_of_a_step(cuda, monkeypatch):
+    """The first step makes the step's resident constants: its waits are the
+    profiler's pageable copies.  A later step (replayed as CUDA graphs)
+    copies nothing from the host and counts no wait."""
     from torch.profiler import ProfilerActivity, profile
 
+    def profiled_step():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ident = step(m, x, gt)
+            torch.cuda.synchronize(cuda)
+        (root,) = of_step(STEP, ident)
+        device = [ev.name for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        # the spans stay on the host's timeline
+        assert not [n for n in device if n.startswith("mft.")]
+        return root, [n for n in device if n.startswith("Memcpy") and "Pageable" in n]
+
+    # no constant resident yet, whatever ran before in this process
+    monkeypatch.setattr(numerics, "_resident", OrderedDict())
     m = person_detect_trainable(10, backend="pallas", device=cuda)
     x, gt = batch(m, 256, device=cuda)
-    step(m, x, gt)  # builds the kernels
+    m.warm(256)  # builds the kernels
     torch.cuda.synchronize(cuda)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ident = step(m, x, gt)
-        torch.cuda.synchronize(cuda)
-    (root,) = of_step(STEP, ident)
-    device = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
-    copies = [n for n in device if n.startswith("Memcpy") and "Pageable" in n]
+    root, copies = profiled_step()
     assert root.waits == len(copies) > 0, sorted(set(copies))
-    # the spans stay on the host's timeline
-    assert not [n for n in device if n.startswith("mft.")]
+    step(m, x, gt)  # the capture
+    root, copies = profiled_step()
+    assert root.waits == len(copies) == 0, sorted(set(copies))
+    assert dict(root.counts) == {trace.GRAPH_STEPS: 1}
