@@ -3,8 +3,13 @@ configuration's graph, and the published peaks of the card.
 
 The MAC and byte counts are the benchmark's frozen copy of the arithmetic
 of the program's ``utils/flops.py``, applied to the graph that the
-benchmark's own reference parses, so that they read the same work
-whatever backend implements it.
+configuration's plain reference parses (``harness.reference_of``), so that
+they read the same work whatever backend implements it.  Whichever
+reference package parsed the graph, each layer that the frozen IR classes
+of ``reference/compiler/ir.py`` describe is an instance of that class, and
+is counted by the rules below; a layer of any other kind has an
+``out_shape``, which counts as activation bytes, and counts 0 MACs and 0
+weight bytes.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 
 def layer_macs(layer) -> int:
     """Multiply-adds per sample of one layer (a pool's adds counted as
-    MACs; reshape, softmax and quantize count 0)."""
+    MACs; reshape, softmax, quantize and any layer kind the frozen IR does
+    not describe count 0)."""
     if isinstance(layer, FullyConnectedLayer):
         k, n = layer.weights.shape
         return int(k * n)

@@ -10,8 +10,8 @@ that many back, as a scoring loop bounds its memory; it never synchronises
 the device inside the window.  The rate is every row completed over the
 whole window, closed by one synchronise.
 
-The check compares every output of the window with the plain reference's
-output for its pool batch, element for element.
+The check compares every output of the window with the configuration's
+plain reference's output for its pool batch, element for element.
 """
 
 from __future__ import annotations
@@ -89,13 +89,11 @@ class Cell:
         release_program(self, "model")
 
     def check(self) -> list:
-        from ..reference.model import Reference
-
         ctx = self.ctx
-        ref = Reference(ctx.model_file(), ctx.device)
+        ref = ctx.reference.Reference(ctx.model_file(), ctx.device)
         want = [ref.forward(xq) for xq in self.pool]
         if ctx.control:  # the control in the program's place
-            ctl = Reference(ctx.model_file(), ctx.device, int4=True)
+            ctl = ctx.reference.Reference(ctx.model_file(), ctx.device, int4=True)
             got_by_batch = [ctl.forward(xq) for xq in self.pool]
             self.outs = [got_by_batch[i % len(self.pool)] for i in range(len(self.outs))]
         wrong, worst = 0, 0

@@ -204,11 +204,10 @@ class Cell:
         release_program(self, "server")
 
     def check(self) -> list:
-        from ..reference.model import Reference
-
         ctx = self.ctx
-        ref = Reference(ctx.model_file(), ctx.device)
-        ctl = Reference(ctx.model_file(), ctx.device, int4=True) if ctx.control else None
+        ref = ctx.reference.Reference(ctx.model_file(), ctx.device)
+        ctl = (ctx.reference.Reference(ctx.model_file(), ctx.device, int4=True) if ctx.control
+               else None)
         wrong_rows, worst, rows = 0, 0.0, 0
         kinds, sched = ctx.params["kinds"], self.sched
         for i in self.checked:

@@ -71,21 +71,19 @@ def _norm(t: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(t.to(torch.float64)))
 
 
-def _resume(tr, state: dict, int4: bool = False) -> None:
-    """Put the reference trainer ``tr`` at ``state``, the program's weights
-    and C0 of each trained layer (on the int4 grid for the control), and
-    fold each FC layer's C2 again from its weights."""
-    from ..reference.model import to_int4_grid
-    from ..reference.train.optimizer import update_constants_fully_connected
-
+def _resume(ref, tr, state: dict, int4: bool = False) -> None:
+    """Put the trainer ``tr`` of the reference module ``ref`` at ``state``,
+    the program's weights and C0 of each trained layer (on the int4 grid
+    for the control), and fold each FC layer's C2 again from its weights."""
     for (k, n), v in state.items():
         if int4 and n == "weights":
-            v = torch.as_tensor(to_int4_grid(v.cpu().numpy()))
+            v = torch.as_tensor(ref.to_int4_grid(v.cpu().numpy()))
         tr.params[k] = {**tr.params[k], n: v.to(tr.device, tr.params[k][n].dtype)}
     for layer in tr.layers:
         p = tr.params.get(f"layer{layer.index}", {})
         if "c2" in p:
-            p["c2"] = update_constants_fully_connected(p["weights"], layer.in_q.zp0)
+            p["c2"] = ref.optimizer.update_constants_fully_connected(p["weights"],
+                                                                     layer.in_q.zp0)
 
 
 def _gap(got: dict, want: dict, keys) -> float:
@@ -184,13 +182,11 @@ class Cell:
         release_program(self, "model")
 
     def check(self) -> list:
-        from ..reference.model import Trainer
-
         ctx, p, t = self.ctx, self.ctx.params, self.ctx.config["train"]
 
         def trainer(int4: bool):
-            return Trainer(ctx.model_file(), ctx.device, t["num_train_layers"], t["loss"],
-                           t["skip_last_layer_train"], int4=int4)
+            return ctx.reference.Trainer(ctx.model_file(), ctx.device, t["num_train_layers"],
+                                         t["loss"], t["skip_last_layer_train"], int4=int4)
 
         def replay(tr):
             p0 = _state(tr.params, self.layers)
@@ -203,7 +199,7 @@ class Cell:
             return p0, outs, g1, _state(tr.params, self.layers)
 
         def last_step(tr, int4: bool = False):
-            _resume(tr, self.last["before"], int4)
+            _resume(ctx.reference, tr, self.last["before"], int4)
             i = self.last["batch"]
             out = tr.step(self.pool[i], self.labels[i])
             grads = _grads(tr.grads)

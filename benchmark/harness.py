@@ -6,6 +6,9 @@ Everything that belongs to one cell is found by name:
 * ``workloads/<cell>.json``: the configuration, the driver, the traffic
   parameters and why the cell exists;
 * ``configs/<config>.json`` and the model file beside it;
+* ``<reference>/model.py``: the configuration's plain reference, in the
+  package ``benchmark.<reference>`` that its ``"reference"`` key names
+  (``benchmark.reference`` where it names none; see ``reference_of``);
 * ``drivers/<driver>.py``: a ``Cell`` class (``setup``, ``window``,
   ``release``, ``check``);
 * ``metrics/<metric>.py``: a ``read(reading)`` that returns the per-layer
@@ -37,11 +40,53 @@ from .trace import Slice
 BENCH = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH)
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "microflow_tpu"})
+DEFAULT_REFERENCE = "reference"
 
 
 def load_data(kind: str, name: str) -> dict:
     with open(os.path.join(BENCH, kind, f"{name}.json")) as f:
         return json.load(f)
+
+
+def reference_name(config: dict) -> str:
+    """The package under ``benchmark/`` that holds the plain reference of
+    ``config`` (a configuration file's object)."""
+    return config.get("reference", DEFAULT_REFERENCE)
+
+
+def reference_of(config: dict):
+    """The ``model`` module of ``config``'s plain reference package,
+    ``benchmark.<reference_name(config)>``, laid out like
+    ``benchmark/reference/``.  Every site that reads a cell's graph,
+    checks its outputs or runs its control goes through it.  The module
+    gives:
+
+    * ``parse(path)``: the graph, with ``input_shape``, ``output_shape``
+      and ``layers``.  Each layer that the frozen IR classes of
+      ``benchmark/reference/compiler/ir.py`` describe is an instance of
+      that class, so that ``costs.py`` counts the same MACs and bytes
+      whichever package parsed the graph; a layer of any other kind has
+      an ``out_shape``, and ``costs.py`` counts it as 0 MACs and 0
+      weight bytes;
+    * ``Reference(path, device, int4=False)``, whose ``forward(xq)`` runs
+      a whole batch (in blocks inside where it must), ``quantize`` and
+      ``dequantize``;
+    * ``to_int4_grid(weights)``;
+    * for train cells, ``Trainer`` and ``optimizer.update_constants_fully_connected``.
+
+    A package that is missing raises ``ModuleNotFoundError`` naming it."""
+    return importlib.import_module(find_reference(config))
+
+
+def find_reference(config: dict) -> str:
+    """The name of ``config``'s reference ``model`` module, found without
+    importing it (only its package's ``__init__`` runs), so that a run
+    fails at set-up on a missing package while the reference's own import
+    stays out of ``setup_s``: ``ModuleNotFoundError`` naming it."""
+    name = f"benchmark.{reference_name(config)}.model"
+    if importlib.util.find_spec(name) is None:
+        raise ModuleNotFoundError(f"No module named {name!r}", name=name)
+    return name
 
 
 def spec() -> dict:
@@ -136,6 +181,13 @@ class Context:
     def model_file(self) -> str:
         return os.path.join(BENCH, "configs", self.config["model_file"])
 
+    @property
+    def reference(self):
+        """The ``model`` module of the configuration's plain reference
+        (``reference_of``), imported at its first use: in the check and
+        the reading, after ``setup_s`` is taken."""
+        return reference_of(self.config)
+
 
 @dataclass
 class Reading:
@@ -143,7 +195,7 @@ class Reading:
 
     trace: object  # trace.TraceSummary or None
     counters: dict
-    graph: object  # the reference's parse of the configuration's model
+    graph: object  # the configuration's reference's parse of its model
 
 
 def collector_log(pauses: list):
@@ -174,6 +226,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device, t_start:
     device = torch.device(device)
     workload = load_data("workloads", cell)
     config = load_data("configs", workload["config"])
+    find_reference(config)
     ctx = Context(cell, workload, config, {**workload["traffic"], **(overrides or {})}, seed,
                   device, seconds, control, patch)
     driver = importlib.import_module(f"benchmark.drivers.{workload['driver']}")
@@ -212,13 +265,11 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device, t_start:
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     program.release()
     checks = program.check()
-    from .reference.frontend.parser import parse
-
     benchmark = spec()
     e2e_specs, layer_specs = cell_metrics(benchmark, cell)
     metrics = {}
     if trace:
-        reading = Reading(win.summary, ctx.counters, parse(ctx.model_file()))
+        reading = Reading(win.summary, ctx.counters, ctx.reference.parse(ctx.model_file()))
         for m in layer_specs:
             value = load_reader(m["name"])(reading)
             if value is not None:

@@ -27,6 +27,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[0] = ROOT
 
 
+def sweep_context(workload_name: str, seed: int, seconds: float, device, overrides=None):
+    """The harness's ``Context`` for ``workload_name`` (its serve driver),
+    with the workload's traffic parameters and ``overrides``; the sweep
+    sets ``rate_rps`` in them rate by rate."""
+    from benchmark.harness import Context, load_data
+
+    workload = load_data("workloads", workload_name)
+    return Context(workload_name, workload, load_data("configs", workload["config"]),
+                   params={**workload["traffic"], **(overrides or {})}, seed=seed,
+                   device=device, seconds=seconds)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", default="person_detect.serve")
@@ -42,11 +54,9 @@ def main() -> int:
         print("serve_sweep: no CUDA device", file=sys.stderr)
         return 2
     from benchmark.drivers.serve import Cell
-    from benchmark.harness import Context, Window, collector_log, load_data
+    from benchmark.harness import Window, collector_log
 
-    workload = load_data("workloads", args.workload)
-    ctx = Context(args.workload, workload, load_data("configs", workload["config"]),
-                  dict(workload["traffic"]), args.seed, torch.device("cuda", 0), args.seconds)
+    ctx = sweep_context(args.workload, args.seed, args.seconds, torch.device("cuda", 0))
     cell = Cell(ctx)
     cell.setup()
     collections: list = []  # [start, end, generation] of each garbage collection

@@ -1,14 +1,26 @@
 """Nothing the benchmark runs imports JAX or the JAX package, by top-level
-name compared whole; the reference imports nothing of the program either."""
+name compared whole; no reference package (``benchmark/reference/`` and
+each one a configuration names) imports anything of the program either."""
 
 import ast
 import os
 import subprocess
 import sys
 
-from benchmark.harness import BENCH, FORBIDDEN, ROOT
+from benchmark.harness import (BENCH, DEFAULT_REFERENCE, FORBIDDEN, ROOT, load_data,
+                               reference_name, spec)
 
 PROGRAM = "microflow_tpu_torch"
+
+
+def configs() -> list[dict]:
+    return [load_data("configs", c["name"]) for c in spec()["configs"]]
+
+
+def references() -> list[str]:
+    """``benchmark/reference/`` and every reference package a
+    configuration names."""
+    return sorted({DEFAULT_REFERENCE} | {reference_name(c) for c in configs()})
 
 
 def top_level_imports(path: str) -> set[str]:
@@ -38,9 +50,11 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for path in sources("reference"):
-        assert PROGRAM not in top_level_imports(path) and not (
-            top_level_imports(path) & FORBIDDEN), path
+    for name in references():
+        assert os.path.isfile(os.path.join(BENCH, name, "model.py")), name
+        for path in sources(name):
+            assert PROGRAM not in top_level_imports(path) and not (
+                top_level_imports(path) & FORBIDDEN), path
 
 
 def run_python(code: str) -> str:
@@ -69,11 +83,17 @@ print(r["correct"], r["forbidden"], harness.forbidden_modules())
 
 
 def test_the_reference_loads_no_program_module():
-    code = """
-import sys
+    """Each configuration's reference parses and folds its model, beside
+    the frozen reference's ``Reference`` and ``Trainer``: no module of the
+    program or of JAX is loaded then."""
+    named = [(reference_name(c), f"benchmark/configs/{c['model_file']}") for c in configs()]
+    code = f"""
+import importlib, sys
 from benchmark.reference.model import Reference, Trainer
 Reference("benchmark/configs/speech.tflite", "cpu").forward
-print(sorted({n.split(".")[0] for n in sys.modules} & {"jax", "jaxlib", "flax",
-      "microflow_tpu", "microflow_tpu_torch"}))
+for name, path in {named!r}:
+    importlib.import_module(f"benchmark.{{name}}.model").Reference(path, "cpu")
+print(sorted({{n.split(".")[0] for n in sys.modules}} & {{"jax", "jaxlib", "flax",
+      "microflow_tpu", "microflow_tpu_torch"}}))
 """
     assert run_python(code).strip() == "[]"

@@ -9,7 +9,6 @@ import pytest
 
 from benchmark import harness
 from benchmark.costs import activation_bytes_per_inference, macs_per_inference, weight_bytes
-from benchmark.reference.frontend.parser import parse
 
 ROOT = harness.ROOT
 SPEC = harness.spec()
@@ -113,8 +112,8 @@ def test_config_file_parses_and_states_the_graph(config):
     with open(os.path.join(ROOT, entry["file"])) as f:
         c = json.load(f)
     assert c["name"] == config and c["source"] == entry["source"]
-    assert c["reduced"] == entry["reduced"] == []
-    g = parse(os.path.join(harness.BENCH, "configs", c["model_file"]))
+    assert c["reduced"] == entry["reduced"]
+    g = harness.reference_of(c).parse(os.path.join(harness.BENCH, "configs", c["model_file"]))
     assert list(g.input_shape) == c["input_shape"] and list(g.output_shape) == c["output_shape"]
     assert len(g.layers) == c["operators"]
     assert macs_per_inference(g) == c["macs_per_inference"]
