@@ -8,7 +8,7 @@ the kernels are built for ``sm_90a``).  Phases, each printing one JSON
 line; any failure raises and the script exits non-zero:
 
 1. device: CUDA must be present; the card's name and power limit.
-2. build: the six kernels of ``microflow_tpu_torch/csrc/`` with ``nvcc``,
+2. build: the eight kernels of ``microflow_tpu_torch/csrc/`` with ``nvcc``,
    in parallel; ``ptxas`` registers, stack and spills of every entry
    function, and a check that the exact2 flat kernel, the megakernel and
    the packed kernel keep 64 registers, no stack and no spills, and that
@@ -96,11 +96,12 @@ line; any failure raises and the script exits non-zero:
    with the default backend (``"flat"`` for person_detect and speech,
    ``"pallas"`` for sine) and 4 person_detect requests (4 ``flatpack``
    launches, no per-op kernel); the same 4 requests through
-   ``backend="pallas"`` (slice 1's path: 14 ``qgemm`` and 14 ``qdwconv``
-   launches a forward); 4 sine requests through ``backend="colfc"``; the 4
+   ``backend="pallas"`` (slice 1's path: 14 ``qgemm``, 14 ``qdwconv`` and
+   1 ``qsoftmax`` launches a forward); 4 sine requests through ``backend="colfc"``; the 4
    person_detect requests through ``"fused"`` (1 ``megakernel`` launch a
    forward), ``"hybrid"`` (1 ``megakernel``, 5 ``qdwconv``, 4 ``qgemm``)
-   and ``"packed"`` (1 ``packed``, 2 ``qdwconv``, 3 ``qgemm``), each with
+   and ``"packed"`` (1 ``packed``, 2 ``qdwconv``, 3 ``qgemm``, 1
+   ``qsoftmax``), each with
    person_detect's golden, and the sine and speech goldens through
    ``"fused"`` and ``"hybrid"``; 4 speech requests through ``"fused"`` (2
    ``megakernel`` launches a forward); the 4 person_detect requests through
@@ -129,8 +130,9 @@ line; any failure raises and the script exits non-zero:
    ``predict_quantized_train`` and ``update_layers`` at batch 256 on seeded
    int8 inputs and targets: grads after every step and params after every
    update bit-equal; each trained layer's count of nonzero gradient entries
-   (every layer must have some); a person_detect step launches 14 ``qgemm``
-   and 14 ``qdwconv`` through ``"pallas"`` and no kernel through ``"xla"``.
+   (every layer must have some); a person_detect step launches 14 ``qgemm``,
+   14 ``qdwconv`` and 1 ``qsoftmax`` through ``"pallas"`` and no kernel
+   through ``"xla"``.
    Then ms a train step and an ``update_layers`` of person_detect at batch
    1024 through ``"pallas"`` and ``"xla"`` in turns, with the card's name
    and power limit.
@@ -176,8 +178,8 @@ line; any failure raises and the script exits non-zero:
    ``"pallas"`` on ``[2, 2]`` and ``[1, 2]`` meshes of the one card (the
    FC's weights and accumulator row-sharded over ``model``), 3 steps at
    batch 256 and an update, bit-equal to the replicated ``"pallas"`` and
-   ``"xla"`` trainers in outputs, grads and params, one ``qdwconv`` launch
-   a cell a step; person_detect_trainable(10) on ``[4, 1]`` (data only)
+   ``"xla"`` trainers in outputs, grads and params, one ``qdwconv`` and one
+   ``qsoftmax`` launch a cell a step; person_detect_trainable(10) on ``[4, 1]`` (data only)
    with an accumulator at -2**31 + 10, so the serial saturating fold runs
    on the gathered batch, bit-equal to one device and no entry wrapped;
    the two-process tier (``scripts/torch_multiprocess_worker.py``), both
@@ -189,6 +191,15 @@ line; any failure raises and the script exits non-zero:
    step at batch 1024 on ``[2, 2]`` against the replicated one, in turns,
    with the card's name and power limit; the phase's seconds.
 
+11. residual: MobileNetV2 (``benchmark/configs/mobilenet_v2.tflite``)
+   through ``compile_tflite``'s default backend, ``"pallas"`` (the graph
+   walk): 36 ``qgemm``, 17 ``qdwconv``, 10 ``qadd`` and 1 ``qsoftmax``
+   launches a forward on two requests (batch 1024 and 3), the batch-3
+   output bit-equal to ``"xla"`` on the card; each ``qadd`` and the
+   ``qsoftmax`` of the batch-1024 forward bit-equal to its plain version
+   and timed beside it and its bound; printed, not gated: ``qsoftmax``
+   beside the plain op at 2 to 1001 classes.
+
 Then the kernels line, the ``nvidia-smi`` name/power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  In the kernels line ``launches`` is the
 count from the kernel's main path in phase 4; ``ms``, ``plain_ms``,
@@ -199,8 +210,11 @@ launch in the ``kernel_times`` line), for ``flatpack``,
 person_detect forward at batch 8192 (the last two launched on phase 4's
 ``MFT_FLAT_REQUANT`` run, their only path), for ``colfc`` one sine
 forward at batch 1,048,576, for ``megakernel`` and ``packed`` one launch
-on person_detect at batch 8192.  No single PyTorch call computes a whole
-network or a segment, so those seven kernels have no ``library_ms``.
+on person_detect at batch 8192, for ``qadd`` and ``qsoftmax`` their
+launches in one MobileNetV2 forward at batch 1024 (10 and 1; ``launches``
+from phase 11's two requests).  No single PyTorch call computes a whole
+network or a segment, TFLite's integer ADD or a softmax summed row by
+row in order, so those nine kernels have no ``library_ms``.
 """
 
 from __future__ import annotations
@@ -304,12 +318,21 @@ KERNEL_INFO = {
                    "replaces": "microflow_tpu/kernels/megakernel.py:371"},
     "packed": {"source": "microflow_tpu_torch/csrc/packed.cu",
                "replaces": "microflow_tpu/kernels/packed.py:433"},
+    # the JAX package has no ADD
+    "qadd": {"source": "microflow_tpu_torch/csrc/qadd.cu", "replaces": None},
+    "qsoftmax": {"source": "microflow_tpu_torch/csrc/qsoftmax.cu",
+                 "replaces": "microflow_tpu/ops/softmax.py:24"},
 }
-PD_FORWARD = {"qgemm": 14, "qdwconv": 14}  # per-op launches in one person_detect forward
+# per-op launches in one person_detect forward
+PD_FORWARD = {"qgemm": 14, "qdwconv": 14, "qsoftmax": 1}
 # launches of 4 person_detect requests on each megakernel/packed path
 PD_PATHS = {"fused": {"megakernel": 4},
             "hybrid": {"megakernel": 4, "qdwconv": 20, "qgemm": 16},  # layers 0-8 per op
-            "packed": {"packed": 4, "qdwconv": 8, "qgemm": 12}}  # layers 23-30 per op
+            # layers 23-30 per op
+            "packed": {"packed": 4, "qdwconv": 8, "qgemm": 12, "qsoftmax": 4}}
+MOBILENET = "benchmark/configs/mobilenet_v2.tflite"
+# per-op launches in one MobileNetV2 forward (the graph walk of "pallas")
+MOBILENET_FORWARD = {"qgemm": 36, "qdwconv": 17, "qadd": 10, "qsoftmax": 1}
 ACTS = (FusedActivation.NONE, FusedActivation.RELU, FusedActivation.RELU6)
 # qgemm's tensor-core path: every (M, K, N) of these is checked
 QGEMM_MMA_EDGES = {"M": (1, 5, 513, 70000), "K": (64, 65, 100, 130, 256, 4000),
@@ -1854,7 +1877,7 @@ def entry_points(dev, rng) -> dict:
                               "--save", ck, "--export", tfl])
         torch.cuda.synchronize()
         train_launches = dict(LAUNCHES)
-        if trained.backend != "pallas" or set(train_launches) != {"qgemm", "qdwconv"}:
+        if trained.backend != "pallas" or set(train_launches) != {"qgemm", "qdwconv", "qsoftmax"}:
             raise AssertionError(f"CLI train ran {trained.backend}, launched {train_launches}")
         xq = trained.quantize_input(x)
         want = trained.predict_inner(xq)
@@ -2181,8 +2204,8 @@ def sharded_speech_checks(dev, batch: int = 256, steps: int = 3) -> dict:
     ``model``): ``steps`` steps and an update beside a replicated
     ``"pallas"`` and ``"xla"`` trainer; outputs, grads after every step and
     params after the update bit-equal.  Returns each mesh's launches a
-    step (a ``qdwconv`` a cell: the depthwise layer; the sharded FC is the
-    plain integer product)."""
+    step (a ``qdwconv`` and a ``qsoftmax`` a cell: the depthwise layer and
+    the softmax; the sharded FC is the plain integer product)."""
     out = {}
     for shape in ((2, 2), (1, 2)):
         mesh = make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
@@ -2209,7 +2232,7 @@ def sharded_speech_checks(dev, batch: int = 256, steps: int = 3) -> dict:
             m.update_layers(batch, TRAIN_LR)
         for m in (mp, mx):
             _same_state(tr.gather()[0], m.params, f"{shape} params after the update")
-        want = {"qdwconv": shape[0] * shape[1]}
+        want = {"qdwconv": shape[0] * shape[1], "qsoftmax": shape[0] * shape[1]}
         if any(n != want for n in launches):
             raise AssertionError(f"{shape}: a sharded step launched {launches}, expected {want}")
         out[f"{shape[0]}x{shape[1]}"] = {"launches_per_step": launches[0],
@@ -2290,7 +2313,7 @@ def two_process_checks() -> dict:
     ``flatpack`` launch a rank and local chunk); NCCL too, a card a rank,
     where there are two cards."""
     res = {}
-    runs = [("gloo", "train_tp", ("--model-backend", "pallas"), {"qdwconv": 4}),
+    runs = [("gloo", "train_tp", ("--model-backend", "pallas"), {"qdwconv": 4, "qsoftmax": 4}),
             ("gloo", "infer", ("--model", "sine", "person_detect", "--model-backend", "pallas",
                                "flat", "--rows", "32", "8192"),
              {"sine": {"qgemm": 3}, "person_detect": {"flatpack": 1}})]
@@ -2324,6 +2347,106 @@ def time_sharded_step(dev, smi: str, batch: int = 1024) -> dict:
         m = tr if name == "sharded_2x2" else one
         runs[name].append(time_ms(lambda: m.predict_quantized_train(xq, gt), 5, warmup=2))
     return {"model": "speech_trainable", "batch": batch, "device": smi, "step_ms": runs}
+
+
+@contextlib.contextmanager
+def captured(*names):
+    """Every call of ``kernels/<name>.py``'s ``<name>`` while the block runs,
+    as name -> [(args, kw)]; the kernels still run."""
+    mods = {n: sys.modules[f"microflow_tpu_torch.kernels.{n}"] for n in names}
+    orig = {n: getattr(mods[n], n) for n in names}
+    calls = {n: [] for n in names}
+
+    def wrap(n):
+        def call(*args, **kw):
+            calls[n].append((args, kw))
+            return orig[n](*args, **kw)
+
+        return call
+
+    for n in names:
+        setattr(mods[n], n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in orig.items():
+            setattr(mods[n], n, fn)
+
+
+def time_elementwise(name: str, calls: list, moved) -> dict:
+    """``qadd`` or ``qsoftmax`` at each captured call: bit-equal to its plain
+    version on the card, ms beside the plain version's and beside the bound
+    (``moved(args)`` bytes at HBM rate); sums over the calls.  No single
+    PyTorch call computes TFLite's integer ADD or this row-ordered softmax,
+    so neither has ``library_ms``."""
+    import microflow_tpu_torch.kernels.qadd as qadd_module
+    import microflow_tpu_torch.kernels.qsoftmax as qsoftmax_module
+
+    module = {"qadd": qadd_module, "qsoftmax": qsoftmax_module}[name]
+    kern, ref = getattr(module, name), getattr(module, f"{name}_reference")
+    rows = []
+    for args, kw in calls:
+        nbytes = moved(args)
+        rows.append({"shape": list(args[0].shape),
+                     "max_abs_err": max_abs_err(kern(*args, **kw), ref(*args, **kw)),
+                     "ms": time_ms(lambda: kern(*args, **kw), 20),
+                     "plain_ms": time_ms(lambda: ref(*args, **kw), 3, warmup=1),
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes})
+    return {"ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "launches_per_forward": len(rows), "per_call": rows}
+
+
+def residual_checks(dev, rng, smi: str) -> dict:
+    """MobileNetV2 (``MOBILENET``) through ``compile_tflite``'s default
+    backend, which must be ``"pallas"``: two requests (batch 1024, then 3)
+    with the launch counts set to 0 just before, ``MOBILENET_FORWARD``
+    launches a forward; the batch-3 output bit-equal to ``"xla"`` on the
+    card.  Each ``qadd`` and the ``qsoftmax`` call of the batch-1024
+    forward, bit-equal to its plain version on the card and timed
+    (``time_elementwise``: 3 bytes an element for ``qadd``, 2 for
+    ``qsoftmax``).  Then ``qsoftmax`` beside the plain op at 2 to 1001
+    classes, call ms (printed, not gated)."""
+    import microflow_tpu_torch.kernels.qadd  # noqa: F401  (for ``captured``)
+    import microflow_tpu_torch.kernels.qsoftmax as qsoftmax_module
+
+    m = compile_tflite(MOBILENET)
+    if m.backend != "pallas":
+        raise AssertionError(f"default backend on CUDA for MobileNetV2 is {m.backend!r}")
+    small = random_input(m, 3, rng)
+    LAUNCHES.clear()
+    with captured("qadd", "qsoftmax") as calls:
+        m.predict_inner(random_input(m, 1024, rng))
+        y = m.predict_inner(small)
+        torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches != {k: 2 * n for k, n in MOBILENET_FORWARD.items()}:
+        raise AssertionError(f"MobileNetV2 launched {launches}, expected {MOBILENET_FORWARD} "
+                             "a forward (2 requests)")
+    xla_err = max_abs_err(y, compile_tflite(MOBILENET, backend="xla").predict_inner(small))
+    if xla_err:
+        raise AssertionError(f"MobileNetV2 through pallas is {xla_err} from xla at batch 3")
+    timed = {
+        "qadd": time_elementwise("qadd", calls["qadd"][:MOBILENET_FORWARD["qadd"]],
+                                 lambda a: 3 * a[0].numel()),
+        "qsoftmax": time_elementwise("qsoftmax", calls["qsoftmax"][:1],
+                                     lambda a: 2 * a[0].numel())}
+    del calls, m
+    torch.cuda.empty_cache()
+    if any(t["max_abs_err"] for t in timed.values()):
+        raise AssertionError(f"qadd or qsoftmax differs from its plain version: {timed}")
+    widths = []
+    for n in (2, 4, 12, 128, 1001):
+        for rows in (1024, 65536):
+            x = torch.randint(-128, 128, (rows, n), device=dev, dtype=torch.int8)
+            kw = dict(in_scale=0.0913, out_scale=1 / 256.0, out_zp=-128)
+            widths.append({"classes": n, "rows": rows,
+                           "qsoftmax_ms": time_ms(lambda: qsoftmax_module.qsoftmax(x, **kw), 20),
+                           "plain_ms": time_ms(lambda: qsoftmax_module.qsoftmax_reference(
+                               x, **kw), 20 if n < 1001 else 3, warmup=1)})
+    return {"backend": "pallas", "launches": launches, "requests": 2, "vs_xla_batch3": xla_err,
+            "batch": 1024, **timed, "softmax_by_width": widths, "device": smi}
 
 
 def distributed_checks(dev, smi: str) -> dict:
@@ -2642,6 +2765,11 @@ def main() -> int:
     emit({"phase": "distributed", "tolerance": "bit-equal (outputs, grads, params)",
           **distributed_checks(dev, smi)})
     torch.cuda.empty_cache()
+    # 11. MobileNetV2: the residual graph walk, qadd and qsoftmax
+    residual = residual_checks(dev, rng, smi)
+    launches.update(qadd=residual["launches"]["qadd"], qsoftmax=residual["launches"]["qsoftmax"])
+    emit({"phase": "residual", "tolerance": "bit-equal (max_abs_err 0)", **residual})
+    torch.cuda.empty_cache()
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
 
     per_kernel = {**timing, "flatpack": timing_whole["flatpack_person_detect"],
@@ -2650,10 +2778,12 @@ def main() -> int:
                   "flatpack_noround": timing_whole["flatpack_noround_person_detect"],
                   "colfc": timing_whole["colfc_sine"],
                   "megakernel": timing_whole["megakernel_person_detect"],
-                  "packed": timing_whole["packed_person_detect"]}
+                  "packed": timing_whole["packed_person_detect"],
+                  "qadd": residual["qadd"], "qsoftmax": residual["qsoftmax"]}
     emit({"kernels": [
         {"name": k, "route": "cuda", **KERNEL_INFO[k], "launches": launches[k],
-         "max_abs_err": max(errs[k], per_kernel[k]["max_abs_err"]), "ms": per_kernel[k]["ms"],
+         "max_abs_err": max(errs.get(k, 0), per_kernel[k]["max_abs_err"]),
+         "ms": per_kernel[k]["ms"],
          "plain_ms": per_kernel[k]["plain_ms"], "bound_ms": per_kernel[k]["bound_ms"],
          "bound_by": per_kernel[k]["bound_by"], "library_ms": per_kernel[k]["library_ms"]}
         for k in KERNEL_INFO]})

@@ -33,9 +33,10 @@ Backends (the JAX package's names, so callers pass the same strings):
   ``fixed`` (some ``d + bias_q`` leaves int32), ``"flat"`` and ``"auto"``
   raise ``ValueError``; the JAX package's ``"auto"`` falls back to XLA.
 * ``"pallas"`` -- FullyConnected and Conv2D through the ``qgemm`` kernel,
-  DepthwiseConv2D through ``qdwconv`` (hand-written CUDA for Hopper); pool,
-  reshape, softmax and quantize stay plain torch, as they are plain array
-  ops in the JAX package's per-op backend.  int8 graphs only.  On the CPU
+  DepthwiseConv2D through ``qdwconv``, ADD through ``qadd``, Softmax
+  through ``qsoftmax`` (hand-written CUDA for Hopper); pool, reshape and
+  quantize stay plain torch, as they are plain array ops in the JAX
+  package's per-op backend.  int8 graphs only.  On the CPU
   the kernels' plain versions run instead, which keeps the host-side prep
   (im2col, folded ``d``, centred weights, padding, channel gather) tested.
 * ``"colfc"`` -- the JAX package's experimental column-FC kernel for tiny
@@ -90,6 +91,7 @@ from ..ops import (
 from ..ops.conv_2d import im2col
 from ..utils import trace
 from .ir import (
+    AddLayer,
     AveragePool2DLayer,
     Conv2DLayer,
     DepthwiseConv2DLayer,
@@ -101,6 +103,14 @@ from .ir import (
 )
 
 BACKENDS = frozenset({"auto", "xla", "pallas", "flat", "colfc", "fused", "hybrid", "packed"})
+# PyTorch's caching allocator serves a request of at most 1 MiB from 2 MiB
+# segments.  An output of more than half of that, kept by a caller that keeps
+# every batch's output on the card (an offline scoring loop), then takes a new
+# segment every second call, and the card's queue drains at each (MobileNetV2's
+# 1024 x 1001 outputs: 1.2-5.5% of the rate, most of its run-to-run spread).
+# ``keepable`` moves such an output into a block just past 1 MiB, which the
+# allocator carves from its 20 MiB segments.
+SMALL_POOL_MAX = 1 << 20
 
 
 def default_backend() -> str:
@@ -195,27 +205,45 @@ def _fc_kernel(layer: FullyConnectedLayer, p: dict, x: torch.Tensor, k: dict) ->
     )
 
 
-def _conv_kernel(layer: Conv2DLayer, p: dict, x: torch.Tensor, k: dict) -> torch.Tensor:
-    from ..kernels import qgemm
-
-    geom = layer.geom
+def conv_folds(layer: Conv2DLayer, p: dict, k: dict) -> dict:
+    """The weight-dependent operands of ``_conv_kernel``: the weights as the
+    GEMM's [K, F] operand ``w``, the folded zero-point correction ``d`` and
+    ``bias0``."""
     in_zp = layer.in_q.zp0
     num_f = layer.filters.shape[0]
-    xg = im2col(x, geom, in_zp).contiguous()  # [B*OH*OW, K]
-    kk = xg.shape[1]
+    kk = int(np.prod(layer.filters.shape[1:]))
     wg = p["weights"].reshape(num_f, kk).T.contiguous()  # [K, F]
     colsum = wg.to(torch.int32).sum(dim=0, dtype=torch.int32)
     d = (kk * in_zp) * k["wzp"] - in_zp * colsum
+    return {"w": wg, "d": d.to(torch.int32), "bias0": _bias0(layer, p)}
+
+
+def dw_folds(layer: DepthwiseConv2DLayer, p: dict, k: dict) -> dict:
+    """The weight-dependent operands of ``_dw_kernel``: the centred taps
+    ``wc``, ``d`` and ``bias0``."""
+    wc = (p["weights"].to(torch.int32) - k["wzp"][None, None, :]).contiguous()
+    d = (-layer.in_q.zp0) * wc.sum(dim=(0, 1), dtype=torch.int32)
+    return {"wc": wc, "d": d.to(torch.int32), "bias0": _bias0(layer, p)}
+
+
+def _conv_kernel(layer: Conv2DLayer, p: dict, x: torch.Tensor, k: dict,
+                 f: dict | None = None) -> torch.Tensor:
+    from ..kernels import qgemm
+
+    geom = layer.geom
+    xg = im2col(x, geom, layer.in_q.zp0).contiguous()  # [B*OH*OW, K]
+    f = conv_folds(layer, p, k) if f is None else f
     y = qgemm(
-        xg, wg, k["wzp"], d.to(torch.int32), _bias0(layer, p), k["c1"],
+        xg, f["w"], k["wzp"], f["d"], f["bias0"], k["c1"],
         activation=layer.activation,
         out_scale=float(layer.out_q.scale0),
         out_zp=layer.out_q.zp0,
     )
-    return y.reshape(x.shape[0], geom.out_rows, geom.out_cols, num_f)
+    return y.reshape(x.shape[0], geom.out_rows, geom.out_cols, layer.filters.shape[0])
 
 
-def _dw_kernel(layer: DepthwiseConv2DLayer, p: dict, x: torch.Tensor, k: dict) -> torch.Tensor:
+def _dw_kernel(layer: DepthwiseConv2DLayer, p: dict, x: torch.Tensor, k: dict,
+               f: dict | None = None) -> torch.Tensor:
     from ..kernels import qdwconv
 
     geom = layer.geom
@@ -223,10 +251,9 @@ def _dw_kernel(layer: DepthwiseConv2DLayer, p: dict, x: torch.Tensor, k: dict) -
     # x has the weights' channels or one (the depth-multiplier stem; the
     # parser admits no other mismatch): the kernel reads it unpadded
     top, _, left, _ = geom.pad_amounts()
-    wc = (p["weights"].to(torch.int32) - k["wzp"][None, None, :]).contiguous()
-    d = (-in_zp) * wc.sum(dim=(0, 1), dtype=torch.int32)
+    f = dw_folds(layer, p, k) if f is None else f
     return qdwconv(
-        x.contiguous(), wc, d.to(torch.int32), _bias0(layer, p), k["c1"],
+        x.contiguous(), f["wc"], f["d"], f["bias0"], k["c1"],
         in_zp=in_zp, pad_top=top, pad_left=left,
         int8_taps=p["weights"].dtype == torch.int8 and not np.any(layer.w_q.zero_point),
         kh=geom.k_rows, kw=geom.k_cols,
@@ -239,11 +266,12 @@ def _dw_kernel(layer: DepthwiseConv2DLayer, p: dict, x: torch.Tensor, k: dict) -
 
 
 def apply_layer(layer, params: dict, x: torch.Tensor, backend: str = "xla",
-                consts: dict | None = None) -> torch.Tensor:
+                consts: dict | None = None, folds: dict | None = None) -> torch.Tensor:
     """Run one IR layer.  ``backend="xla"`` uses the plain torch ops;
     ``backend="pallas"`` routes FC / Conv / DWConv through the kernels
     (identical numerics), with the layer's ``layer_constants`` (made here
-    when not given)."""
+    when not given) and a conv's or depthwise layer's ``conv_folds`` or
+    ``dw_folds`` of ``params`` (made here when not given)."""
     kernels = backend == "pallas"
     if kernels and consts is None:
         consts = layer_constants(layer, x.device)
@@ -268,7 +296,7 @@ def apply_layer(layer, params: dict, x: torch.Tensor, backend: str = "xla",
     if isinstance(layer, Conv2DLayer):
         p = params[f"layer{layer.index}"]
         if kernels:
-            return _conv_kernel(layer, p, x, consts)
+            return _conv_kernel(layer, p, x, consts, folds)
         num_f = layer.filters.shape[0]
         w_zp = broadcast_per_channel(layer.w_q.zero_point, num_f, np.int32)
         c1 = broadcast_per_channel(layer.c1, num_f, np.float32)
@@ -287,7 +315,7 @@ def apply_layer(layer, params: dict, x: torch.Tensor, backend: str = "xla",
     if isinstance(layer, DepthwiseConv2DLayer):
         p = params[f"layer{layer.index}"]
         if kernels:
-            return _dw_kernel(layer, p, x, consts)
+            return _dw_kernel(layer, p, x, consts, folds)
         ch = layer.weights.shape[2]
         w_zp = broadcast_per_channel(layer.w_q.zero_point, ch, np.int32)
         c1 = broadcast_per_channel(layer.c1, ch, np.float32)
@@ -316,6 +344,11 @@ def apply_layer(layer, params: dict, x: torch.Tensor, backend: str = "xla",
     if isinstance(layer, SoftmaxLayer):
         if x.dim() > 2:
             x = reshape_2d(x)
+        if kernels:
+            from ..kernels.qsoftmax import qsoftmax
+
+            return qsoftmax(x, in_scale=layer.in_q.scale0, out_scale=layer.out_q.scale0,
+                            out_zp=layer.out_q.zp0)
         return softmax(
             x,
             in_scale=layer.in_q.scale0,
@@ -333,7 +366,33 @@ def apply_layer(layer, params: dict, x: torch.Tensor, backend: str = "xla",
             out_zp=layer.out_q.zp0,
             out_dtype=torch_dtype(layer.out_dtype),
         )
+    if isinstance(layer, AddLayer):
+        raise TypeError("an ADD reads two tensors: run it with apply_add")
     raise TypeError(f"unknown layer {type(layer)}")
+
+
+def apply_add(layer: AddLayer, x1: torch.Tensor, x2: torch.Tensor,
+              backend: str = "xla") -> torch.Tensor:
+    """Run one ``ADD``: the ``qadd`` kernel on ``backend="pallas"``, the plain
+    op (``ops/add.py``) otherwise; the same bits."""
+    if backend == "pallas":
+        from ..kernels.qadd import qadd
+
+        return qadd(x1, x2, layer)
+    from ..ops.add import add
+
+    return add(x1, x2, layer)
+
+
+def keepable(y: torch.Tensor) -> torch.Tensor:
+    """``y``, or, where it is a CUDA tensor of more than ``SMALL_POOL_MAX / 2``
+    and at most ``SMALL_POOL_MAX`` bytes, a copy of it at the head of a block
+    of ``SMALL_POOL_MAX + 512`` bytes."""
+    n = y.numel() * y.element_size()
+    if not y.is_cuda or not SMALL_POOL_MAX // 2 < n <= SMALL_POOL_MAX:
+        return y
+    block = torch.empty(SMALL_POOL_MAX + 512, dtype=torch.uint8, device=y.device)
+    return block[:n].view(y.dtype).view(y.shape).copy_(y)
 
 
 def _non_int8(graph: Graph) -> list[str]:
@@ -442,6 +501,8 @@ class CompiledModel:
         self._tail_backend = "pallas" if self.device.type == "cuda" else "xla"
         self._consts = {layer.index: layer_constants(layer, self.device)
                         for layer in per_op_layers}
+        # a graph with wiring: the tensors no later layer reads, after each layer
+        self._frees = graph.wiring.frees() if graph.wiring is not None else None
 
     @property
     def baked(self) -> bool:
@@ -462,6 +523,7 @@ class CompiledModel:
                 "build; swap params on backend 'xla' or 'pallas', or build from a graph "
                 "that holds the new weights")
         self._params = params
+        self._folds = {}  # the walk's conv_folds and dw_folds, by layer index
 
     def _forward(self, xq: torch.Tensor) -> torch.Tensor:
         if self._flat is not None:
@@ -474,9 +536,39 @@ class CompiledModel:
             col_fn, meta = self._colfc
             y = col_fn(xq.reshape(xq.shape[0], meta["k0"]))
             return y.reshape(xq.shape[0], *self.graph.output_shape)
+        if self._frees is not None:
+            return self._walk(xq, 0, self.backend)
         for layer in self.graph.layers:
             xq = apply_layer(layer, self.params, xq, self.backend, self._consts.get(layer.index))
         return xq
+
+    def _walk(self, x: torch.Tensor, start: int, backend: str) -> torch.Tensor:
+        """The layers from ``start`` on of a graph with wiring, ``x`` being
+        the tensor layer ``start`` reads: each layer takes its inputs by
+        tensor id, and a tensor is dropped after its last reader.  The most
+        activation bytes held at once (from shapes, on the host) go to the
+        counter ``mft.graph.live_peak_bytes``; each ``ADD`` is a span
+        ``mft.op.add``."""
+        w, layers = self.graph.wiring, self.graph.layers
+        held = {w.layers[start - 1][1] if start else w.input: x}
+        size = peak = x.numel() * x.element_size()
+        for i in range(start, len(layers)):
+            layer, (ins, out) = layers[i], w.layers[i]
+            if isinstance(layer, AddLayer):
+                with trace.Span(trace.ADD_SPAN):
+                    y = apply_add(layer, held[ins[0]], held[ins[1]], backend)
+            else:
+                y = apply_layer(layer, self.params, held[ins[0]], backend,
+                                self._consts.get(layer.index),
+                                self._layer_folds(layer) if backend == "pallas" else None)
+            held[out] = y
+            size += y.numel() * y.element_size()
+            peak = max(peak, size)
+            for t in self._frees[i]:
+                gone = held.pop(t)
+                size -= gone.numel() * gone.element_size()
+        trace.level(trace.LIVE_PEAK, peak)
+        return held[w.output]
 
     def _flat_forward(self, xq: torch.Tensor) -> torch.Tensor:
         """The flat kernel on the prefix, then the tail layers."""
@@ -490,7 +582,26 @@ class CompiledModel:
         packed_fn, n_layers, _ = self._packed
         return self._tail(packed_fn(xq.contiguous()), n_layers)
 
+    def _layer_folds(self, layer) -> dict | None:
+        """A conv's or depthwise layer's ``conv_folds``/``dw_folds`` for the
+        walk, made at its first call after ``params`` is assigned and kept
+        until the next assignment.  The walk takes its params as read-only:
+        a graph with wiring is never trained, and a caller that writes the
+        tensors in place assigns ``params`` again (``m.params = m.params``)
+        for the walk to see the write.  The chain graphs' per-op layers,
+        which a trainer updates every step, make theirs at every call."""
+        if not isinstance(layer, (Conv2DLayer, DepthwiseConv2DLayer)):
+            return None
+        folds = self._folds.get(layer.index)
+        if folds is None:
+            fold = conv_folds if isinstance(layer, Conv2DLayer) else dw_folds
+            folds = self._folds[layer.index] = fold(layer, self.params[f"layer{layer.index}"],
+                                                    self._consts[layer.index])
+        return folds
+
     def _tail(self, x: torch.Tensor, n_layers: int) -> torch.Tensor:
+        if self._frees is not None:
+            return self._walk(x, n_layers, self._tail_backend)
         for layer in self.graph.layers[n_layers:]:
             x = apply_layer(layer, self.params, x, self._tail_backend,
                             self._consts.get(layer.index))
@@ -525,9 +636,9 @@ class CompiledModel:
         return dequantize(yq, self.graph.output_q.scale0, self.graph.output_q.zp0)
 
     def predict_inner(self, xq) -> torch.Tensor:
-        """int [B, *input_shape] -> int [B, *output_shape]."""
+        """int [B, *input_shape] -> int [B, *output_shape] (``keepable``)."""
         with trace.Span("mft.predict", root=True):
-            return self._forward(self._input(xq, torch_dtype(self.graph.input_dtype)))
+            return keepable(self._forward(self._input(xq, torch_dtype(self.graph.input_dtype))))
 
     def export(self, path: str | None = None) -> bytes:
         """The model with its current params (a ``TrainableModel``'s trained

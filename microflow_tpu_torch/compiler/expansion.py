@@ -21,6 +21,7 @@ from ..kernels.qdwconv import PATH_GENERAL, PATH_NAMES
 from ..kernels.qdwconv import plan as qdwconv_plan
 from ..kernels.qgemm import MMA_MIN_K, qgemm_path
 from .ir import (
+    AddLayer,
     AveragePool2DLayer,
     Conv2DLayer,
     DepthwiseConv2DLayer,
@@ -33,7 +34,8 @@ from .ir import (
 PLAIN_OPS = {FullyConnectedLayer: "ops.fully_connected", Conv2DLayer: "ops.conv_2d",
              DepthwiseConv2DLayer: "ops.depthwise_conv_2d",
              AveragePool2DLayer: "ops.average_pool_2d", SoftmaxLayer: "ops.softmax",
-             ReshapeLayer: "ops.reshape", QuantizeLayer: "ops.quantize_op"}
+             ReshapeLayer: "ops.reshape", QuantizeLayer: "ops.quantize_op",
+             AddLayer: "ops.add"}
 
 
 def _dims(batch: int, shape) -> str:
@@ -73,7 +75,21 @@ def _function(layer, backend: str, cuda: bool, batch: int, in_shape) -> str:
             return _qgemm(batch * g.out_rows * g.out_cols, kh * kw * c, f, cuda)
         if isinstance(layer, DepthwiseConv2DLayer):
             return _qdwconv(layer, batch, in_shape, cuda)
+        if isinstance(layer, AddLayer):
+            return "qadd_kernel (csrc/qadd.cu)" if cuda else "qadd_reference"
+        if isinstance(layer, SoftmaxLayer):
+            return "qsoftmax_kernel (csrc/qsoftmax.cu)" if cuda else "qsoftmax_reference"
     return PLAIN_OPS[type(layer)]
+
+
+def _in_shapes(g) -> list[tuple]:
+    """The per-sample shape of the (first) tensor each layer reads."""
+    outs = [tuple(layer.out_shape) for layer in g.layers]
+    if g.wiring is None:
+        return [tuple(g.input_shape)] + outs[:-1]
+    by_id = {g.wiring.input: tuple(g.input_shape)}
+    by_id.update((out, shape) for (_, out), shape in zip(g.wiring.layers, outs))
+    return [by_id[ins[0]] for ins, _ in g.wiring.layers]
 
 
 def _layer_line(layer, batch: int, in_shape, what: str) -> str:
@@ -102,7 +118,7 @@ def expansion(model, batch_size: int = 1) -> str:
     g = model.graph
     cuda = model.device.type == "cuda"
     b = batch_size
-    shapes = [tuple(g.input_shape)] + [tuple(layer.out_shape) for layer in g.layers]
+    shapes = _in_shapes(g)
     lines = [layer_table(g), "",
              f"backend: {model.backend}   device: {model.device}   batch: {b}", ""]
 

@@ -20,6 +20,7 @@ from ..core.tensor import reshape_2d
 from ..ops.conv_2d import conv_2d_accumulate
 from ..ops.depthwise_conv_2d import depthwise_conv_2d_accumulate
 from .builder import apply_layer
+from .ir import refuse_wiring
 from .ir import Conv2DLayer, DepthwiseConv2DLayer, FullyConnectedLayer
 
 
@@ -60,6 +61,7 @@ def _dwconv_fixed(layer: DepthwiseConv2DLayer, p: dict, x: torch.Tensor) -> torc
 def build_fixed_forward(graph):
     """``forward(params, xq) -> yq`` with fixed-point MAC requants;
     ``params`` as ``CompiledModel.params`` holds them."""
+    refuse_wiring(graph, "the fixed-point forward")
     # requant_fixed saturates to the int8 range; a uint8 graph would
     # silently produce wrong-range outputs, so refuse it up front.
     if np.dtype(graph.input_dtype) != np.int8:

@@ -6,6 +6,9 @@ Exact float32 reproductions of the reference preprocessors:
 * Conv2D:         ``microflow-macros/src/ops/conv_2d.rs:90-110``
 * DepthwiseConv:  ``microflow-macros/src/ops/depthwise_conv_2d.rs:96-116``
 * AveragePool2D:  ``microflow-macros/src/ops/average_pool_2d.rs:73-79``
+* Add:            TFLite's ``kernels/add.cc`` (``Prepare``, int8), which
+  MicroFlow lacks: integer multipliers and shifts from double, as
+  ``quantization_util.cc`` makes them (``preprocess_add``)
 
 All arithmetic is done in numpy float32 with the same association order as
 the Rust code so the folded constants are bit-identical.
@@ -17,6 +20,8 @@ is tested against (``tests/test_torch_native.py``).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -95,3 +100,64 @@ def preprocess_average_pool_2d(in_q: QuantInfo, out_q: QuantInfo) -> tuple[np.fl
     c0 = F32(in_q.scale0) / F32(out_q.scale0)
     c1 = F32(out_q.zp0) - (F32(in_q.scale0) * F32(in_q.zp0)) / F32(out_q.scale0)
     return F32(c0), F32(c1)
+
+
+ADD_LEFT_SHIFT = 20  # add.cc's left shift for int8 and uint8 inputs
+
+
+def _round_half_away(x: float) -> int:
+    """``std::round`` of a double: half away from zero."""
+    return math.floor(x + 0.5) if x >= 0 else -math.floor(-x + 0.5)
+
+
+def quantize_multiplier_smaller_than_one(m: float) -> tuple[int, int]:
+    """TFLite's ``QuantizeMultiplierSmallerThanOneExp``: a double ``m`` in
+    (0, 1) as ``(q, e)``, an int32 multiplier ``q`` in [2**30, 2**31) and a
+    shift ``e <= 0``, with ``m`` ~ ``q * 2**(e - 31)``.  A shift below -31
+    gives ``(0, 0)``, as there."""
+    if not 0.0 < m < 1.0:
+        raise ValueError(f"multiplier {m!r} is not in (0, 1)")
+    q, shift = math.frexp(m)
+    q_fixed = _round_half_away(q * (1 << 31))
+    if q_fixed == 1 << 31:
+        q_fixed //= 2
+        shift += 1
+    if shift < -31:
+        return 0, 0
+    return int(q_fixed), int(shift)
+
+
+def add_activation_range(activation, out_q: QuantInfo) -> tuple[int, int]:
+    """TFLite's ``CalculateActivationRangeQuantized`` for int8:
+    ``zp + round(f / scale)`` of 0 and 6, in f32, clamped to the int8
+    range."""
+    from ..core.activation import FusedActivation
+
+    scale, zp = F32(out_q.scale0), out_q.zp0
+
+    def quantize(f: float) -> int:
+        return zp + _round_half_away(float(F32(f) / scale))
+
+    lo, hi = -128, 127
+    if activation is FusedActivation.RELU:
+        lo = max(lo, quantize(0.0))
+    elif activation is FusedActivation.RELU6:
+        lo, hi = max(lo, quantize(0.0)), min(hi, quantize(6.0))
+    return lo, hi
+
+
+def preprocess_add(in1_q: QuantInfo, in2_q: QuantInfo, out_q: QuantInfo, activation) -> dict:
+    """``AddLayer``'s constants, as ``add.cc`` prepares an int8 ``ADD``: both
+    inputs brought to twice the larger input scale, the sum to the
+    output's.  Returns the keyword arguments of ``AddLayer`` after
+    ``index`` and the quantization."""
+    s1, s2, so = F32(in1_q.scale0), F32(in2_q.scale0), F32(out_q.scale0)
+    twice_max = float(F32(2) * max(s1, s2))
+    m1, e1 = quantize_multiplier_smaller_than_one(float(s1) / twice_max)
+    m2, e2 = quantize_multiplier_smaller_than_one(float(s2) / twice_max)
+    mo, eo = quantize_multiplier_smaller_than_one(
+        twice_max / float(F32(1 << ADD_LEFT_SHIFT) * so))
+    lo, hi = add_activation_range(activation, out_q)
+    return dict(left_shift=ADD_LEFT_SHIFT, in1_multiplier=m1, in1_shift=e1,
+                in2_multiplier=m2, in2_shift=e2, out_multiplier=mo, out_shift=eo,
+                act_min=lo, act_max=hi)

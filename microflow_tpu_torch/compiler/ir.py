@@ -134,6 +134,93 @@ class QuantizeLayer:
     out_shape: tuple
 
 
+@dataclass
+class AddLayer:
+    """TFLite's int8 ``ADD`` of two tensors of one shape (``kernels/add.cc``
+    prepares it, ``reference/integer_ops/add.h`` runs it), every constant an
+    integer (``folding.preprocess_add``).  Per element::
+
+        a = (x1 - in1_zp) << left_shift        (and b from x2 alike)
+        s = scale(a, in1_multiplier, in1_shift) + scale(b, in2_multiplier, in2_shift)
+        y = clamp(scale(s, out_multiplier, out_shift) + out_zp, act_min, act_max)
+
+    ``scale(v, m, e)`` is gemmlowp's rounding doubling high multiply by ``m``
+    then a rounding right shift by ``-e`` (each ``e <= 0``).  It reads two
+    tensors, so only a graph with ``Graph.wiring`` holds one.  The JAX
+    package has no counterpart."""
+
+    index: int
+    in1_q: QuantInfo
+    in2_q: QuantInfo
+    out_q: QuantInfo
+    left_shift: int
+    in1_multiplier: int
+    in1_shift: int
+    in2_multiplier: int
+    in2_shift: int
+    out_multiplier: int
+    out_shift: int
+    act_min: int
+    act_max: int
+    activation: FusedActivation
+    out_shape: tuple
+
+
+@dataclass(frozen=True)
+class Wiring:
+    """Which tensors a graph's layers read and write, by the model file's
+    tensor ids: ``layers[i]`` is layer i's ``(inputs, output)``, ``input``
+    and ``output`` the graph's own."""
+
+    input: int
+    output: int
+    layers: tuple  # ((input ids, output id), ...), one a layer
+
+    def frees(self) -> list[tuple]:
+        """After layer i, the tensor ids that no later layer reads (the
+        graph's output is kept): one tuple a layer."""
+        last = {}
+        for i, (ins, _) in enumerate(self.layers):
+            for t in ins:
+                last[t] = i
+        out = [[] for _ in self.layers]
+        for t, i in last.items():
+            if t != self.output:
+                out[i].append(t)
+        return [tuple(ts) for ts in out]
+
+
+def chain_length(graph) -> int:
+    """How many leading layers of ``graph`` form a plain chain, the only
+    form the one-launch planners take: each reads the output of the layer
+    before it (the first, the graph's input) and nothing else, and its
+    output is read by the next layer alone.  Every layer of a graph with no
+    ``wiring``."""
+    w = graph.wiring
+    if w is None:
+        return len(graph.layers)
+    readers: dict = {}
+    for i, (ins, _) in enumerate(w.layers):
+        for t in ins:
+            readers.setdefault(t, set()).add(i)
+    prev = w.input
+    for i, (ins, out) in enumerate(w.layers):
+        if ins != (prev,) or readers.get(out, set()) - {i + 1}:
+            return i
+        prev = out
+    return len(w.layers)
+
+
+def refuse_wiring(graph, what: str) -> None:
+    """Raise ``NotImplementedError`` naming ``ADD`` where ``graph`` is not a
+    chain: ``what`` runs chain graphs only."""
+    if graph.wiring is not None:
+        adds = [layer.index for layer in graph.layers if isinstance(layer, AddLayer)]
+        raise NotImplementedError(
+            f"{what} runs chain graphs only; {graph.name!r} is a residual graph "
+            f"(ADD at layers {adds})")
+
+
 Layer = (
     FullyConnectedLayer
     | Conv2DLayer
@@ -141,6 +228,7 @@ Layer = (
     | AveragePool2DLayer
     | SoftmaxLayer
     | ReshapeLayer
+    | AddLayer
 )
 
 
@@ -156,3 +244,7 @@ class Graph:
     output_shape: tuple
     output_q: QuantInfo
     output_dtype: np.dtype
+    # the tensors each layer reads and writes; None for a chain, in which
+    # each layer reads the output of the one before it (every graph the JAX
+    # package parses)
+    wiring: Wiring | None = None

@@ -28,7 +28,7 @@ import torch
 
 from ..compiler.ir import (AveragePool2DLayer, Conv2DLayer,
                            DepthwiseConv2DLayer, FullyConnectedLayer, Graph,
-                           QuantizeLayer, ReshapeLayer, SoftmaxLayer)
+                           QuantizeLayer, ReshapeLayer, SoftmaxLayer, refuse_wiring)
 from ..core.activation import FusedActivation
 from ..core.tensor import ViewPadding
 from .tflite import ActivationFunctionType as Act
@@ -99,7 +99,9 @@ def export_tflite(graph: Graph, params: dict | None = None,
                   description: str = "microflow_tpu_torch export") -> bytes:
     """Serialize ``graph`` (with ``params`` overriding trained arrays: torch
     tensors on any device, or numpy arrays) to TFLite flatbuffer bytes.
-    ``CompiledModel.export()`` is the user-facing wrapper."""
+    ``CompiledModel.export()`` is the user-facing wrapper.  A residual graph
+    (an ``ADD``, ``graph.wiring``) raises ``NotImplementedError``."""
+    refuse_wiring(graph, "export")
     m = ModelWriter(description)
     in_shape = tuple(graph.input_shape)
     cur_tt = _TT[np.dtype(graph.input_dtype)]  # activation dtype, may change at QUANTIZE

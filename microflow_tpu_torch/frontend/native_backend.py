@@ -64,6 +64,9 @@ class _Operator:
     def fully_connected_options(self):
         return self._options
 
+    def add_options(self):
+        return self._options
+
 
 class _OperatorCode:
     def __init__(self, d: dict):

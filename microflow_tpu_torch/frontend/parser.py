@@ -15,6 +15,7 @@ import numpy as np
 
 from ..compiler import folding
 from ..compiler.ir import (
+    AddLayer,
     AveragePool2DLayer,
     Conv2DLayer,
     DepthwiseConv2DLayer,
@@ -24,6 +25,8 @@ from ..compiler.ir import (
     QuantizeLayer,
     ReshapeLayer,
     SoftmaxLayer,
+    Wiring,
+    chain_length,
 )
 from ..core.activation import FusedActivation
 from ..core.tensor import ViewGeometry, ViewPadding
@@ -127,11 +130,21 @@ def parse(path: str, name: str | None = None, frontend: str = "auto") -> Graph:
                 "is not supported (compiling it would silently treat the "
                 "kernel as dense)")
 
+    wiring = []  # (data input ids, output id) a layer
+    written = {sg.inputs[0]}
     for index, op in enumerate(sg.operators):
         code = tflite.BuiltinOperator(model.operator_codes[op.opcode_index].op)
         out_t = tensors[op.outputs[0]]
         out_q = _quant_info(out_t)
         out_shape = _per_sample(out_t.shape)
+        reads = tuple(op.inputs[:2] if code == tflite.BuiltinOperator.ADD else op.inputs[:1])
+        for t in reads:
+            if t not in written:
+                raise NotImplementedError(
+                    f"{code.name} #{index}: input tensor {t} is neither the graph's input "
+                    "nor the output of an earlier operator")
+        written.add(op.outputs[0])
+        wiring.append((reads, op.outputs[0]))
 
         if code == tflite.BuiltinOperator.FULLY_CONNECTED:
             in_t, w_t, b_t = (tensors[i] for i in op.inputs[:3])
@@ -268,10 +281,31 @@ def parse(path: str, name: str | None = None, frontend: str = "auto") -> Graph:
                 )
             )
 
+        elif code == tflite.BuiltinOperator.ADD:
+            in1_t, in2_t = tensors[op.inputs[0]], tensors[op.inputs[1]]
+            if in1_t.shape != in2_t.shape or in1_t.shape != out_t.shape:
+                raise NotImplementedError(
+                    f"ADD #{index}: shapes {in1_t.shape} + {in2_t.shape} -> {out_t.shape}; "
+                    "only an elementwise ADD of one shape is supported (no broadcast)")
+            types = {in1_t.type, in2_t.type, out_t.type}
+            if types != {tflite.TensorType.INT8}:
+                raise NotImplementedError(
+                    f"ADD #{index}: tensor types {sorted(t.name for t in types)}; only int8 "
+                    "is supported")
+            in1_q, in2_q = _quant_info(in1_t), _quant_info(in2_t)
+            act = _activation(op.add_options().fused_activation_function)
+            layers.append(
+                AddLayer(
+                    index=index, in1_q=in1_q, in2_q=in2_q, out_q=out_q,
+                    **folding.preprocess_add(in1_q, in2_q, out_q, act),
+                    activation=act, out_shape=out_shape,
+                )
+            )
+
         else:
             raise NotImplementedError(f"unsupported operator: {code!r}")
 
-    return Graph(
+    graph = Graph(
         name=name or (sg.name or "model"),
         layers=layers,
         input_shape=_per_sample(inp.shape),
@@ -280,4 +314,12 @@ def parse(path: str, name: str | None = None, frontend: str = "auto") -> Graph:
         output_shape=_per_sample(out.shape),
         output_q=_quant_info(out),
         output_dtype=np.dtype(out.type.np_dtype),
+        wiring=Wiring(sg.inputs[0], sg.outputs[0], tuple(wiring)),
     )
+    if wiring and wiring[-1][1] != sg.outputs[0]:
+        raise NotImplementedError(
+            f"the graph's output is tensor {sg.outputs[0]}, not the last operator's "
+            f"({wiring[-1][1]})")
+    if chain_length(graph) == len(layers):
+        graph.wiring = None  # a chain, as every graph without an ADD is
+    return graph

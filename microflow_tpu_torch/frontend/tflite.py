@@ -38,6 +38,7 @@ class TensorType(enum.IntEnum):
 
 
 class BuiltinOperator(enum.IntEnum):
+    ADD = 0
     AVERAGE_POOL_2D = 1
     CONV_2D = 3
     DEPTHWISE_CONV_2D = 4
@@ -54,6 +55,7 @@ class BuiltinOptionsType(enum.IntEnum):
     POOL_2D = 5
     FULLY_CONNECTED = 8
     SOFTMAX = 9
+    ADD = 11
 
 
 class Padding(enum.IntEnum):
@@ -111,6 +113,9 @@ class Operator:
 
     def fully_connected_options(self) -> "FullyConnectedOptions":
         return FullyConnectedOptions(self._options)
+
+    def add_options(self) -> "AddOptions":
+        return AddOptions(self._options)
 
 
 class SubGraph:
@@ -198,6 +203,12 @@ class FullyConnectedOptions:
         t = t or _EMPTY
         self.fused_activation_function = ActivationFunctionType(t.int8(0))
         self.keep_num_dims = bool(t.uint8(2))
+
+
+class AddOptions:
+    def __init__(self, t: Table | None):
+        t = t or _EMPTY
+        self.fused_activation_function = ActivationFunctionType(t.int8(0))
 
 
 class _EmptyTable:

@@ -27,6 +27,7 @@ from .tflite import (
 
 # BuiltinOptions union indices (tflite.fbs:421-560)
 _UNION = {
+    BuiltinOperator.ADD: 11,
     BuiltinOperator.CONV_2D: 1,
     BuiltinOperator.DEPTHWISE_CONV_2D: 2,
     BuiltinOperator.AVERAGE_POOL_2D: 5,
@@ -202,6 +203,10 @@ class ModelWriter:
 
     @staticmethod
     def fc_options(act: ActivationFunctionType):
+        return [(0, "i8", int(act))]
+
+    @staticmethod
+    def add_options(act: ActivationFunctionType):
         return [(0, "i8", int(act))]
 
     @staticmethod

@@ -8,6 +8,9 @@ network into one kernel (backends ``"flat"`` and ``"colfc"``),
 ``build_fused_forward`` plans segments of layers into launches of the
 megakernel (``"fused"``, ``"hybrid"``) and ``build_packed_kernel`` a
 depthwise/pointwise prefix into one launch (``"packed"``).
+``qadd`` (``kernels/qadd.py``) and ``qsoftmax`` (``kernels/qsoftmax.py``)
+are per-op kernels too, for a graph's ``ADD`` and the softmax; they are
+imported where they run, not here.
 ``LAUNCHES`` counts kernel launches by name, so a run can show that its
 main path went through the kernels (``utils/trace.py`` keeps it beside
 the port's other counters and its spans).

@@ -50,6 +50,8 @@ SIGNATURES = {
     "colfc": ("mf_colfc", [_P, _P, _L, _P, _I, _I, _I, _I, _P]),
     "megakernel": ("mf_megakernel", [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P]),
     "packed": ("mf_packed", [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "qadd": ("mf_qadd", [_P, _P, _P, _L] + [_I] * 13 + [_P]),
+    "qsoftmax": ("mf_qsoftmax", [_P, _P, _L, _I, _F, _F, _I, _P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -133,6 +135,22 @@ def library(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             _LIBS[name] = lib
     return lib
+
+
+def launch(fn, device, *args) -> int:
+    """``fn(*args, stream)``: a kernel's entry point called with the raw
+    current stream of ``device`` (a CUDA ``torch.device``), that device
+    made current where it is not.  Cheaper on the host than
+    ``torch.cuda.device`` and ``torch.cuda.current_stream()``, which each
+    call pays once a launch."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)
 
 
 def check(rc: int, name: str) -> None:

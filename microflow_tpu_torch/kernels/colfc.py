@@ -21,7 +21,7 @@ import contextlib
 import numpy as np
 import torch
 
-from ..compiler.ir import FullyConnectedLayer, Graph
+from ..compiler.ir import FullyConnectedLayer, Graph, chain_length
 from ..core.activation import activation_bounds
 from . import LAUNCHES, build
 from .flatpack import SMEM_BYTES, _f32_bits, _requant
@@ -34,8 +34,9 @@ NARROW_OUT = 2  # N_out up to which the last layer's columns repeat (csrc/colfc.
 def plan_col(graph: Graph, max_width: int = MAX_WIDTH):
     """The column plan: every layer a FullyConnected with w_zp == 0 and
     both dims <= max_width.  Returns [(W_T i32 [N,K], d [N,1] i32,
-    bias0 [N,1] f32, c1 [N,1] f32, clip_lo, clip_hi)] or None."""
-    if np.dtype(graph.input_dtype) != np.int8:
+    bias0 [N,1] f32, c1 [N,1] f32, clip_lo, clip_hi)] or None (also for a
+    graph that is not one chain, ``chain_length``)."""
+    if np.dtype(graph.input_dtype) != np.int8 or chain_length(graph) != len(graph.layers):
         return None
     k0 = int(np.prod(graph.input_shape))
     if k0 > max_width:

@@ -70,6 +70,7 @@ from ..compiler.ir import (
     Graph,
     ReshapeLayer,
     SoftmaxLayer,
+    chain_length,
 )
 from ..core.activation import activation_bounds
 from ..core.fixedpoint import derive_bias_q, multiplier_scale
@@ -159,13 +160,15 @@ class FlatOp:
 def _pack_prefix(graph: Graph, max_layers):
     """The JAX package's packable layer chain: [(kind, layer, in_shape,
     out_shape)] with kind "conv" (conv, dw, fc), "pool", "skip" or
-    "softmax"; None when fewer than two compute ops pack."""
+    "softmax"; None when fewer than two compute ops pack.  It stops before
+    the first layer that is not a plain link of a chain (``chain_length``):
+    the kernel keeps one activation a row and returns only the last."""
     if np.dtype(graph.input_dtype) != np.int8:
         return None
     in_shape = tuple(graph.input_shape)
     layers = []
     n_convs = 0
-    for idx, layer in enumerate(graph.layers):
+    for idx, layer in enumerate(graph.layers[:chain_length(graph)]):
         if max_layers is not None and idx >= max_layers:
             break
         if isinstance(layer, (Conv2DLayer, DepthwiseConv2DLayer)):

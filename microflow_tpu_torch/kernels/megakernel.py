@@ -71,6 +71,7 @@ from ..compiler.ir import (
     QuantizeLayer,
     ReshapeLayer,
     SoftmaxLayer,
+    chain_length,
 )
 from ..core.activation import activation_bounds
 from ..core.numerics import broadcast_per_channel
@@ -134,8 +135,9 @@ DW3_PATHS = {DW3_S1: "dw3_s1", DW3_S2: "dw3_s2", DW3_STEM: "dw3_stem"}
 def fusable(graph: Graph) -> bool:
     """True when every layer is one the megakernel runs and the model is
     int8: Conv2D, DepthwiseConv2D, FullyConnected, AveragePool2D, Reshape,
-    int8 Quantize, and a Softmax only as the last layer."""
-    if np.dtype(graph.input_dtype) != np.int8:
+    int8 Quantize, and a Softmax only as the last layer, in one chain
+    (``chain_length``)."""
+    if np.dtype(graph.input_dtype) != np.int8 or chain_length(graph) != len(graph.layers):
         return False
     for i, layer in enumerate(graph.layers):
         if isinstance(layer, SoftmaxLayer):
@@ -153,14 +155,14 @@ def fusable(graph: Graph) -> bool:
 def hybrid_split_index(graph: Graph, min_channels: int = 64) -> int:
     """The first layer whose per-sample input has a last dimension of at
     least ``min_channels`` (the JAX package's lane-efficiency rule), or
-    ``len(graph.layers)`` when there is none.  A softmax is never the
-    split."""
+    ``len(graph.layers)`` when there is none, and never past the graph's
+    plain chain (``chain_length``).  A softmax is never the split."""
     shape = tuple(graph.input_shape)
-    for i, layer in enumerate(graph.layers):
+    for i, layer in enumerate(graph.layers[:chain_length(graph)]):
         if len(shape) >= 1 and shape[-1] >= min_channels and not isinstance(layer, SoftmaxLayer):
             return i
         shape = tuple(getattr(layer, "out_shape", shape))
-    return len(graph.layers)
+    return chain_length(graph)
 
 
 @dataclass
@@ -220,7 +222,10 @@ def plan_segments(graph: Graph, start_index: int = 0):
     """The JAX package's segmentation of the layers from ``start_index``:
     ``(steps, tail_softmax)`` with steps ``("reshape", shape)`` or
     ``("segment", Segment)``.  Raises ``TypeError`` for a layer the
-    megakernel does not run."""
+    megakernel does not run, ``ValueError`` for a graph that is not one
+    chain (``chain_length``)."""
+    if chain_length(graph) != len(graph.layers):
+        raise ValueError("megakernel: the graph is not one chain of layers")
     layers = list(graph.layers)
     tail = None
     if layers and isinstance(layers[-1], SoftmaxLayer):

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..compiler.ir import Conv2DLayer, DepthwiseConv2DLayer, Graph
+from ..compiler.ir import Conv2DLayer, DepthwiseConv2DLayer, Graph, chain_length
 from ..core.activation import activation_bounds
 from ..core.numerics import broadcast_per_channel, f32, round_away
 from ..core.tensor import ViewPadding
@@ -126,8 +126,9 @@ def _edge_d(k: np.ndarray, c: int, w_in: int, w_sweep: int, stride: int, in_zp: 
 def plan_packed(graph: Graph, max_layers: int | None = None):
     """Plan the maximal packable dw/pw prefix: ``(ops, n_layers, meta)``, or
     None if it does not pack.  ``meta``: ``h_out``, ``lanes_out``,
-    ``w_out``, ``c_out``, ``in_rows``, ``in_cols``."""
-    layers = graph.layers
+    ``w_out``, ``c_out``, ``in_rows``, ``in_cols``.  It takes no layer past
+    the graph's plain chain (``chain_length``)."""
+    layers = graph.layers[:chain_length(graph)]
     if not layers or not isinstance(layers[0], DepthwiseConv2DLayer):
         return None
     g0 = layers[0].geom

@@ -201,11 +201,10 @@ def qdwconv(
     if p.path == PATH_GENERAL and p.vec == 4 and wc.data_ptr() % 16:
         p = p._replace(vec=1)
     fn = build.library("qdwconv").mf_qdwconv
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), wc.data_ptr(), d.data_ptr(), bias0.data_ptr(), c1.data_ptr(),
-                out.data_ptr(), B, H, W, cin, C, kh, kw, sr, sc, pad_top, pad_left, oh, ow,
-                int(in_zp), float(lo), float(hi), p.path, p.vec, p.rows, p.samples, p.margin,
-                p.pitch, torch.cuda.current_stream().cuda_stream)
+    rc = build.launch(fn, x.device, x.data_ptr(), wc.data_ptr(), d.data_ptr(), bias0.data_ptr(),
+                      c1.data_ptr(), out.data_ptr(), B, H, W, cin, C, kh, kw, sr, sc, pad_top,
+                      pad_left, oh, ow, int(in_zp), float(lo), float(hi), p.path, p.vec, p.rows,
+                      p.samples, p.margin, p.pitch)
     build.check(rc, "qdwconv")
     LAUNCHES["qdwconv"] += 1
     return out

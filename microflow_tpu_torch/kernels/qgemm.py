@@ -22,6 +22,8 @@ compute the same bits.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core.activation import FusedActivation, activation_bounds
@@ -38,6 +40,7 @@ from . import LAUNCHES, build
 MMA_MIN_K = 64
 MMA_MAX_K = 4096
 PATHS = ("dp4a", "mma")  # the C entry point's path argument is the index
+_bounds = functools.lru_cache(maxsize=1024)(activation_bounds)  # a per-call host cost
 
 
 def qgemm_path(M: int, K: int, N: int) -> str:
@@ -117,14 +120,13 @@ def qgemm(
     out = torch.empty((M, N), dtype=torch.int8, device=x.device)
     if M == 0:
         return out
-    lo, hi = activation_bounds(activation, out_scale, out_zp)
+    lo, hi = _bounds(activation, out_scale, out_zp)
     fn = build.library("qgemm").mf_qgemm
     vec_x = int(K % 4 == 0 and x.data_ptr() % 4 == 0)
     vec_out = int(N % 4 == 0 and out.data_ptr() % 4 == 0)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), wzp.data_ptr(), d.data_ptr(), bias0.data_ptr(),
-                c1.data_ptr(), out.data_ptr(), M, K, N, float(lo), float(hi), vec_x, vec_out,
-                PATHS.index(path), torch.cuda.current_stream().cuda_stream)
+    rc = build.launch(fn, x.device, x.data_ptr(), w.data_ptr(), wzp.data_ptr(), d.data_ptr(),
+                      bias0.data_ptr(), c1.data_ptr(), out.data_ptr(), M, K, N, float(lo),
+                      float(hi), vec_x, vec_out, PATHS.index(path))
     build.check(rc, "qgemm")
     LAUNCHES["qgemm"] += 1
     return out

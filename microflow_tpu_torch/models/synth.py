@@ -299,3 +299,82 @@ def per_channel_dw(seed: int = 4) -> bytes:
     m.add_op(Op.SOFTMAX, [x3], [x4], m.softmax_options(1.0))
 
     return m.finish([x0], [x4])
+
+
+def residual(seed: int = 6) -> bytes:
+    """Inverted-residual blocks (MobileNetV2's, arXiv:1801.04381) joined by
+    int8 ``ADD``s, at a small size, with per-channel weights as a converter
+    writes them; the port's own generator (the JAX package has no ``ADD``):
+
+    [B,16,16,3] -> conv3x3x8 s2 (relu6) -> dw3x3 (relu6) -> conv1x1x8 ->
+    block A: 1x1x48 (relu6), dw3x3, 1x1x8, ADD with the block's input ->
+    block B: 1x1x48 (relu6), dw3x3 s2 (relu6), 1x1x16, no ADD (the shape
+    changes) -> block C: 1x1x96 (relu6), dw3x3 (relu6), 1x1x16, ADD (relu6)
+    -> avgpool 4x4 -> conv1x1x10 -> reshape -> softmax.
+
+    The first two layers are a plain chain, so a one-launch planner may
+    take them; layer 2's output is read by block A twice."""
+    rng = np.random.default_rng(seed)
+    m = ModelWriter("microflow_tpu synthetic residual")
+    six = (6.0 / 255.0, -128)  # a relu6 output's grid
+
+    def weights(shape, axis, hint):
+        w = rng.normal(0.0, hint, shape).astype(np.float32)
+        other = tuple(a for a in range(len(shape)) if a != axis)
+        s = np.maximum(np.abs(w).max(axis=other) / 127.0, 1e-6).astype(np.float32)
+        bshape = [1] * len(shape)
+        bshape[axis] = -1
+        q = np.clip(np.round(w / s.reshape(bshape)), -127, 127).astype(np.int8)
+        return q, s
+
+    def layer(op, x, x_q, shape, out_shape, out_q, opts, hint, axis=0):
+        q, s = weights(shape, axis, hint)
+        n = shape[axis]
+        bs = (np.float32(x_q[0]) * s).astype(np.float32)
+        b = np.round(rng.normal(0.0, 0.05, n) / bs).astype(np.int32)
+        t_w = m.tensor(list(shape), I8, s, np.zeros(n, np.int64), data=q, name="w",
+                       quantized_dimension=axis)
+        t_b = m.tensor([n], I32, bs, np.zeros(n, np.int64), data=b, name="b")
+        y = m.tensor([1, *out_shape], I8, out_q[0], out_q[1], name="act")
+        m.add_op(op, [x, t_w, t_b], [y], opts)
+        return y
+
+    def conv(x, x_q, c_in, hw, c_out, out_q, act, k=1, stride=1, hint=0.3):
+        o = hw // stride
+        return layer(Op.CONV_2D, x, x_q, (c_out, k, k, c_in), (o, o, c_out), out_q,
+                     m.conv_options(Padding.SAME, (stride, stride), act), hint)
+
+    def dw(x, x_q, c, hw, out_q, act, stride=1):
+        o = hw // stride
+        return layer(Op.DEPTHWISE_CONV_2D, x, x_q, (1, 3, 3, c), (o, o, c), out_q,
+                     m.dwconv_options(Padding.SAME, (stride, stride), 1, act), 0.4, axis=3)
+
+    def block(x, x_q, c_in, hw, c_out, stride, proj_q, add_q=None, add_act=Act.NONE):
+        e = conv(x, x_q, c_in, hw, 6 * c_in, six, Act.RELU6)
+        d = dw(e, six, 6 * c_in, hw, six, Act.RELU6, stride)
+        p = conv(d, six, 6 * c_in, hw // stride, c_out, proj_q, Act.NONE)
+        if add_q is None:
+            return p, proj_q
+        y = m.tensor([1, hw, hw, c_out], I8, add_q[0], add_q[1], name="add")
+        m.add_op(Op.ADD, [x, p], [y], m.add_options(add_act))
+        return y, add_q
+
+    in_q = (1 / 128.0, 0)
+    x0 = m.tensor([1, 16, 16, 3], I8, in_q[0], in_q[1], name="input")
+    x = conv(x0, in_q, 3, 16, 8, six, Act.RELU6, k=3, stride=2)
+    x = dw(x, six, 8, 8, six, Act.RELU6)
+    x_q = (0.05, 3)
+    x = conv(x, six, 8, 8, 8, x_q, Act.NONE)
+    x, x_q = block(x, x_q, 8, 8, 8, 1, (0.04, -5), (0.07, 2))
+    x, x_q = block(x, x_q, 8, 8, 16, 2, (0.06, 1))
+    x, x_q = block(x, x_q, 16, 4, 16, 1, (0.05, -2), (6.0 / 255.0, -128), Act.RELU6)
+    xp = m.tensor([1, 1, 1, 16], I8, x_q[0], x_q[1], name="pool")
+    m.add_op(Op.AVERAGE_POOL_2D, [x], [xp],
+             m.pool_options(Padding.VALID, (4, 4), (4, 4), Act.NONE))
+    logits_q = (0.1, 4)
+    xl = conv(xp, x_q, 16, 1, 10, logits_q, Act.NONE, hint=0.5)
+    xr = m.tensor([1, 10], I8, logits_q[0], logits_q[1], name="flat")
+    m.add_op(Op.RESHAPE, [xl], [xr], m.reshape_options([1, 10]))
+    xs = m.tensor([1, 10], I8, 1 / 256.0, -128, name="probs")
+    m.add_op(Op.SOFTMAX, [xr], [xs], m.softmax_options(1.0))
+    return m.finish([x0], [xs])

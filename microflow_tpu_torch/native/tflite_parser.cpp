@@ -304,6 +304,10 @@ static int parse_tflite(const uint8_t* buf, size_t len, char* out, size_t out_ca
             j.raw(",\"fused_activation_function\":");
             j.num(o.scalar_i(5, 1, 0));
             break;
+          case 11:  // AddOptions
+            j.raw("\"fused_activation_function\":");
+            j.num(o.scalar_i(0, 1, 0));
+            break;
           case 8:  // FullyConnectedOptions
             j.raw("\"fused_activation_function\":");
             j.num(o.scalar_i(0, 1, 0));

@@ -59,6 +59,7 @@ from ..compiler.ir import (
     DepthwiseConv2DLayer,
     FullyConnectedLayer,
     ReshapeLayer,
+    refuse_wiring,
 )
 from ..core.numerics import f32, torch_dtype
 from ..core.quantize import dequantize
@@ -148,6 +149,7 @@ class ShardedTrainer(FoldBound):
     the batch split would change."""
 
     def __init__(self, model, mesh: Mesh, collectives: Collectives | None = None):
+        refuse_wiring(model.graph, "the sharded step")
         if model.gradient_mode != "quantized":
             raise NotImplementedError(
                 "the sharded step runs gradient_mode='quantized' only: the f32 twin sums in "

@@ -60,6 +60,7 @@ from ..compiler.ir import (
     Graph,
     ReshapeLayer,
     SoftmaxLayer,
+    refuse_wiring,
 )
 from ..core.numerics import as_device, const_f32, f32, read_host, torch_dtype
 from ..core.quantize import dequantize, quantize
@@ -138,6 +139,7 @@ class TrainableModel(FoldBound, CompiledModel):
         gradient_mode: str = "quantized",
         device=None,
     ):
+        refuse_wiring(graph, "training")
         device = resolve_device(device)
         resolved = select_backend(graph, backend or "xla", device.type)[0]
         if resolved in BAKED_BACKENDS:

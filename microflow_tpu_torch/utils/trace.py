@@ -31,7 +31,11 @@ wrapper counts its own, and a replayed CUDA graph those it captured);
 the program makes through ``core.numerics``' ``const_f32``, ``const_int``,
 ``as_device`` and ``read_host``; ``COUNTERS[GRAPH_STEPS]``, each train
 step that replayed its forward, backward and update as CUDA graphs, and
-``COUNTERS[EAGER_STEPS]``, each other train step (``train/trainer.py``).
+``COUNTERS[EAGER_STEPS]``, each other train step (``train/trainer.py``);
+``COUNTERS[LIVE_PEAK]``, a level and not a count: the most activation
+bytes that the newest forward of a graph with wiring held at once
+(``CompiledModel._walk``, which also opens a span ``ADD_SPAN`` around each
+``ADD`` it issues).
 ``snapshot()`` gives an operator each span's count, median and total and
 the counters, as ``BatchServer.stats()`` does for the server.
 """
@@ -50,6 +54,8 @@ CAP = 8192  # records kept a span name, the newest
 HOST_WAITS = "mft.host_waits"
 GRAPH_STEPS = "mft.train.graph_steps"
 EAGER_STEPS = "mft.train.eager_steps"
+LIVE_PEAK = "mft.graph.live_peak_bytes"
+ADD_SPAN = "mft.op.add"
 
 LAUNCHES: Counter = Counter()
 COUNTERS: Counter = Counter({HOST_WAITS: 0, GRAPH_STEPS: 0, EAGER_STEPS: 0})
@@ -77,6 +83,12 @@ def count(name: str) -> None:
     """Add one to ``COUNTERS[name]``."""
     with _lock:
         COUNTERS[name] += 1
+
+
+def level(name: str, value: int) -> None:
+    """Set ``COUNTERS[name]`` to ``value``: a level, the newest reading."""
+    with _lock:
+        COUNTERS[name] = value
 
 
 def _stack() -> list:

@@ -197,11 +197,11 @@ def test_flat_measurement_modes_match_plain(cuda, name, max_layers, requant):
 def test_sharded_speech_step_on_the_card(cuda):
     """chip_smoke.py's phase 10, shorter: ``ShardedTrainer`` on speech
     through ``"pallas"`` on meshes that repeat the card, bit-equal to the
-    replicated ``"pallas"`` and ``"xla"`` trainers, a ``qdwconv`` launch a
-    cell a step."""
+    replicated ``"pallas"`` and ``"xla"`` trainers, a ``qdwconv`` and a
+    ``qsoftmax`` launch a cell a step."""
     res = chip_smoke.sharded_speech_checks(cuda, batch=64, steps=2)
-    assert res["2x2"]["launches_per_step"] == {"qdwconv": 4}
-    assert res["1x2"]["launches_per_step"] == {"qdwconv": 2}
+    assert res["2x2"]["launches_per_step"] == {"qdwconv": 4, "qsoftmax": 4}
+    assert res["1x2"]["launches_per_step"] == {"qdwconv": 2, "qsoftmax": 2}
 
 
 @pytest.mark.cuda
@@ -424,3 +424,126 @@ def test_batch_server_on_the_card(cuda, name, per_batch, monkeypatch):
                                  per_batch=per_batch)
     assert res["served_vs_predict_inner_max_abs_err"] == 0
     assert res["stats"]["requests_failed"] == 0
+
+
+def _add_layer(zps=(-7, 12, -3), scales=(0.031, 0.047, 0.052), act=TAct.RELU6):
+    from microflow_tpu_torch.compiler import folding
+    from microflow_tpu_torch.compiler.ir import AddLayer, QuantInfo
+
+    q1, q2, qo = (QuantInfo(np.array([s], F32), np.array([z], np.int64))
+                  for s, z in zip(scales, zps))
+    return AddLayer(0, q1, q2, qo, **folding.preprocess_add(q1, q2, qo, act), activation=act,
+                    out_shape=())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(65536, 0), (1, 0), (4099, 0), (4099, 3),
+                                      (1024 * 56 * 56 * 24, 0)])
+def test_qadd_matches_plain(cuda, n, offset):
+    """``qadd`` on the card, bit-equal to its plain version: every pair of
+    int8 codes, tails past the 16-byte vectors, unaligned views (the
+    scalar path), MobileNetV2's largest ADD at batch 1024, and every
+    activation."""
+    from microflow_tpu_torch.kernels.qadd import qadd, qadd_reference
+
+    gen = torch.Generator().manual_seed(n)
+    x1 = torch.randint(-128, 128, (n + offset,), generator=gen, dtype=torch.int8)
+    x2 = torch.randint(-128, 128, (n + offset,), generator=gen, dtype=torch.int8)
+    if n == 65536:  # every pair of codes
+        codes = torch.arange(-128, 128, dtype=torch.int8)
+        x1, x2 = codes.repeat_interleave(256), codes.repeat(256)
+    for act in TAct:
+        layer = _add_layer(act=act)
+        a, b = x1[offset:].to(cuda), x2[offset:].to(cuda)
+        launches = LAUNCHES["qadd"]
+        got = qadd(a, b, layer)
+        assert LAUNCHES["qadd"] == launches + 1
+        want = qadd_reference(x1[offset:], x2[offset:], layer)
+        assert torch.equal(got.cpu(), want), act
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,in_scale", [(1024, 1001, 0.0913), (3, 129, 0.5), (700, 4000, 1.7)])
+def test_qsoftmax_matches_plain(cuda, M, N, in_scale):
+    """``qsoftmax`` on the card, bit-equal to the plain op there (each row
+    summed left to right), at MobileNetV2's 1001 classes and around it."""
+    from microflow_tpu_torch.kernels.qsoftmax import qsoftmax, qsoftmax_reference
+
+    gen = torch.Generator().manual_seed(N)
+    x = torch.randint(-128, 128, (M, N), generator=gen, dtype=torch.int8)
+    kw = dict(in_scale=in_scale, out_scale=1 / 256.0, out_zp=-128)
+    launches = LAUNCHES["qsoftmax"]
+    got = qsoftmax(x.to(cuda), **kw)
+    assert LAUNCHES["qsoftmax"] == launches + 1
+    assert torch.equal(got, qsoftmax_reference(x.to(cuda), **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,batch", [("synth", 64),
+                                        ("benchmark/configs/mobilenet_v2.tflite", 2)])
+def test_residual_walk_on_the_card(cuda, path, batch, tmp_path, monkeypatch):
+    """A residual graph through ``auto`` (``pallas``: the graph walk over
+    ``qgemm``, ``qdwconv`` and ``qadd``; the synthetic graph's first two
+    layers through the flat kernel), bit-equal to the plain ops on the CPU
+    and to the benchmark's plain reference."""
+    from benchmark.reference_residual.model import Reference
+    from microflow_tpu_torch.models import synth
+
+    monkeypatch.delenv("MFT_BACKEND", raising=False)
+    if path == "synth":
+        path = synth.write(str(tmp_path / "residual.tflite"), synth.residual())
+    m = compile_tflite(path)
+    xla = compile_tflite(path, backend="xla", device="cpu")
+    assert m.backend == ("flat" if path.endswith("residual.tflite") else "pallas")
+    gen = torch.Generator().manual_seed(batch)
+    xq = torch.randint(-128, 128, (batch, *m.graph.input_shape), generator=gen, dtype=torch.int8)
+    launches = LAUNCHES["qadd"]
+    got = m.predict_inner(xq.to(cuda)).cpu()
+    adds = sum(type(layer).__name__ == "AddLayer" for layer in m.graph.layers)
+    assert LAUNCHES["qadd"] == launches + adds
+    assert torch.equal(got, xla.predict_inner(xq))
+    assert torch.equal(got, Reference(path, "cpu").forward(xq))
+    pallas = compile_tflite(path, backend="pallas")
+    assert torch.equal(pallas.predict_inner(xq.to(cuda)).cpu(), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,moved", [((1024, 1001), torch.int8, True),
+                                               ((4096, 2), torch.int8, False),
+                                               ((300, 700), torch.float32, True),
+                                               ((1 << 20,), torch.int8, True),
+                                               (((1 << 20) + 1,), torch.int8, False)])
+def test_keepable_outputs_leave_the_small_pool(cuda, shape, dtype, moved):
+    """An output of more than 512 KiB and at most 1 MiB comes back at the head
+    of a block past 1 MiB, with the same values; any other is returned as it
+    is."""
+    from microflow_tpu_torch.compiler.builder import SMALL_POOL_MAX, keepable
+
+    y = torch.randint(-128, 128, shape, device=cuda).to(dtype)
+    out = keepable(y)
+    assert torch.equal(out, y) and out.shape == y.shape and out.dtype == dtype
+    assert (out.untyped_storage().nbytes() == SMALL_POOL_MAX + 512) is moved
+    assert (out.data_ptr() != y.data_ptr()) is moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1024, 640])
+def test_kept_outputs_through_keepable_take_fewer_segments(cuda, rows):
+    """57 outputs of MobileNetV2's shape at batch 1024 and 640 (1,025,024
+    and 640,640 bytes), each kept: without ``keepable`` the allocator takes
+    a new 2 MiB segment every second or third output, with it a 20 MiB
+    segment every 19 outputs (and one 2 MiB segment for the copies'
+    sources)."""
+    from microflow_tpu_torch.compiler.builder import keepable
+
+    def segments(fn) -> int:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_stats()["num_device_alloc"]
+        kept = [fn(torch.full((rows, 1001), i % 100, dtype=torch.int8, device=cuda))
+                for i in range(57)]
+        assert all(int(k[0, 0]) == i % 100 for i, k in enumerate(kept))
+        return torch.cuda.memory_stats()["num_device_alloc"] - before
+
+    plain, moved = segments(lambda y: y), segments(keepable)
+    assert plain >= 57 // 3 and moved * 3 <= plain, (plain, moved)

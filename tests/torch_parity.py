@@ -330,8 +330,11 @@ def jax_graph(value):
         return _JAX_TYPES[type(value).__name__](value.value)
     if dataclasses.is_dataclass(value):
         cls = _JAX_TYPES.get(type(value).__name__) or getattr(jir, type(value).__name__)
-        return cls(**{f.name: jax_graph(getattr(value, f.name))
-                      for f in dataclasses.fields(value)})
+        fields = {f.name: getattr(value, f.name) for f in dataclasses.fields(value)}
+        # the port's graph wiring: None on a chain, the only graph the JAX package has
+        if type(value).__name__ == "Graph":
+            assert fields.pop("wiring") is None, "the JAX package has no residual graph"
+        return cls(**{name: jax_graph(v) for name, v in fields.items()})
     if isinstance(value, list):
         return [jax_graph(v) for v in value]
     return value
