@@ -131,8 +131,12 @@ line; any failure raises and the script exits non-zero:
    int8 inputs and targets: grads after every step and params after every
    update bit-equal; each trained layer's count of nonzero gradient entries
    (every layer must have some); a person_detect step launches 14 ``qgemm``,
-   14 ``qdwconv`` and 1 ``qsoftmax`` through ``"pallas"`` and no kernel
-   through ``"xla"``.
+   14 ``qdwconv``, 1 ``qsoftmax`` and 4 ``qwgrad`` through ``"pallas"`` and
+   the 4 ``qwgrad`` alone through ``"xla"``.  ``qwgrad`` (the 1x1 convs'
+   folded weight gradients) equal to its plain version at person_detect's
+   four 1x1 shapes at batch 1024 (timed beside it and its bound) and on
+   planted edge inputs (``qwgrad_cases``); person_detect_trainable(10) on
+   the card bit-equal to the same on the CPU, 3 steps at batch 64.
    Then ms a train step and an ``update_layers`` of person_detect at batch
    1024 through ``"pallas"`` and ``"xla"`` in turns, with the card's name
    and power limit.
@@ -212,9 +216,12 @@ person_detect forward at batch 8192 (the last two launched on phase 4's
 forward at batch 1,048,576, for ``megakernel`` and ``packed`` one launch
 on person_detect at batch 8192, for ``qadd`` and ``qsoftmax`` their
 launches in one MobileNetV2 forward at batch 1024 (10 and 1; ``launches``
-from phase 11's two requests).  No single PyTorch call computes a whole
-network or a segment, TFLite's integer ADD or a softmax summed row by
-row in order, so those nine kernels have no ``library_ms``.
+from phase 11's two requests), for ``qwgrad`` its 4 launches in one
+person_detect train step at batch 1024 (``launches`` from phase 7's
+``"xla"`` step).  No single PyTorch call computes a whole network or a
+segment, TFLite's integer ADD, a softmax summed row by row in order or
+the normalized fold of per-sample gradients, so those ten kernels have no
+``library_ms``.
 """
 
 from __future__ import annotations
@@ -289,7 +296,13 @@ from microflow_tpu_torch.models import (
 from microflow_tpu_torch.ops.depthwise_conv_2d import window_sum
 from microflow_tpu_torch.parallel import ShardedTrainer, make_mesh
 from microflow_tpu_torch.train import TrainableModel
-from microflow_tpu_torch.utils.trace import COUNTERS, EAGER_STEPS, GRAPH_STEPS
+from microflow_tpu_torch.utils.trace import (
+    COUNTERS,
+    EAGER_STEPS,
+    GRAPH_STEPS,
+    WGRAD_FOLDS,
+    WGRAD_PLAIN,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # int8 tensor-core operations/s.
@@ -322,9 +335,18 @@ KERNEL_INFO = {
     "qadd": {"source": "microflow_tpu_torch/csrc/qadd.cu", "replaces": None},
     "qsoftmax": {"source": "microflow_tpu_torch/csrc/qsoftmax.cu",
                  "replaces": "microflow_tpu/ops/softmax.py:24"},
+    # the JAX package's backward is plain jnp
+    "qwgrad": {"source": "microflow_tpu_torch/csrc/qwgrad.cu", "replaces": None},
 }
 # per-op launches in one person_detect forward
 PD_FORWARD = {"qgemm": 14, "qdwconv": 14, "qsoftmax": 1}
+# launches of the backward in one person_detect_trainable(10) step on the
+# card (layers 22, 24, 26 and 28: its 1x1 convs), whatever the forward's backend
+PD_BACKWARD = {"qwgrad": 4}
+# person_detect_trainable(10)'s 1x1 convs, whose weight gradients qwgrad folds
+PD_POINTWISE = (22, 24, 26, 28)
+# H100 SXM: int32 multiply-adds a clock and SM (64 lanes), the boost clock
+INT32_MACS_PER_S = 132 * 64 * 1.98e9
 # launches of 4 person_detect requests on each megakernel/packed path
 PD_PATHS = {"fused": {"megakernel": 4},
             "hybrid": {"megakernel": 4, "qdwconv": 20, "qgemm": 16},  # layers 0-8 per op
@@ -1683,6 +1705,152 @@ def timed(kern, ref, x, nbytes: int, ops: int, **extra) -> dict:
             "bytes": nbytes, "ops": ops, "library_ms": None}
 
 
+# --- the 1x1 convs' folded weight gradients (qwgrad) -------------------------
+
+INT_MIN = -2**31
+
+
+def pointwise_layer(layer, F: int | None = None, C: int | None = None, rows: int | None = None,
+                    cols: int | None = None, in_zp: int | None = None):
+    """A copy of the 1x1 conv ``layer`` with other filter or channel counts,
+    another plane or another input zero point."""
+    f0, _, _, c0 = layer.filters.shape
+    geom = layer.geom
+    if rows is not None:
+        geom = dataclasses.replace(geom, in_rows=rows, in_cols=cols, out_rows=rows,
+                                   out_cols=cols)
+    in_q = layer.in_q
+    if in_zp is not None:
+        in_q = dataclasses.replace(in_q, zero_point=np.array([in_zp], np.int64))
+    return dataclasses.replace(layer, filters=np.zeros((F or f0, 1, 1, C or c0), np.int8),
+                               geom=geom, in_q=in_q)
+
+
+def qwgrad_inputs(layer, batch: int, gen: torch.Generator, acc_bound: int = 2**20):
+    """Seeded (x_q, md, acc) for ``layer``: int8 inputs, a masked dOut with
+    about half of its entries and a tenth of its columns zero (as ReLU6
+    masks leave it), and an accumulator within ``acc_bound``."""
+    F_, _, _, C = layer.filters.shape
+    g = layer.geom
+    x = torch.randint(-128, 128, (batch, g.in_rows, g.in_cols, C), generator=gen,
+                      dtype=torch.int8)
+    md = torch.randint(-2**20, 2**20, (batch, g.out_rows, g.out_cols, F_), generator=gen,
+                       dtype=torch.int32)
+    md *= torch.rand(md.shape, generator=gen) < 0.5
+    md *= torch.rand((batch, 1, 1, F_), generator=gen) >= 0.1
+    acc = torch.randint(-acc_bound, acc_bound + 1, (F_, 1, 1, C), generator=gen,
+                        dtype=torch.int32)
+    return x, md, acc
+
+
+def qwgrad_edge_inputs(layer, batch: int, gen: torch.Generator):
+    """``qwgrad_inputs`` with planted columns of the masked dOut, a sample
+    each: all zero; two INT_MINs (the wrapped norm 0: quotients of +-inf and
+    0/0); a single 1 and a single -1 (quotients past +-127); 1, 1 (norm 2:
+    exact .5 ties of both signs); 3, -1 (norm 4); full-range int32 entries
+    (wrapped products and norms); INT_MAX beside INT_MIN.  Needs 2
+    positions a sample and 7 samples."""
+    x, md, acc = qwgrad_inputs(layer, batch, gen, acc_bound=2**31 - 1)
+    B, H, W, F_ = md.shape
+    flat = md.view(B, H * W, F_)
+    planted = ([0], [INT_MIN, INT_MIN], [1], [-1], [1, 1], [3, -1])
+    for b, column in enumerate(planted):
+        f = b % F_
+        flat[b, :, f] = 0
+        flat[b, :len(column), f] = torch.tensor(column, dtype=torch.int32)
+    flat[len(planted)] = torch.randint(INT_MIN, 2**31, (H * W, F_), generator=gen,
+                                       dtype=torch.int64).to(torch.int32)
+    flat[len(planted), :2, 0] = torch.tensor([2**31 - 1, INT_MIN], dtype=torch.int32)
+    return x, md, acc
+
+
+def qwgrad_cases(graph, batch: int, gen: torch.Generator) -> list:
+    """(name, layer, x_q, md, acc) for qwgrad: person_detect's four 1x1
+    convs at ``batch``; then at odd sizes (13 samples, which no chunk of the
+    kernel divides) the planted edges on layer 24, the same at in_zp 127 and
+    0, widths no tile or load divides (F 70, C 67; F 2, C 5), and 56
+    positions a sample (two stages of the kernel's 48)."""
+    layers = {i: graph.layers[i] for i in PD_POINTWISE}
+    cases = [(f"layer{i}", layer, *qwgrad_inputs(layer, batch, gen))
+             for i, layer in layers.items()]
+    base = layers[24]
+    for name, layer in (("edges", base), ("edges_zp127", pointwise_layer(base, in_zp=127)),
+                        ("edges_zp0", pointwise_layer(base, in_zp=0)),
+                        ("edges_f70_c67", pointwise_layer(base, F=70, C=67)),
+                        ("edges_f2_c5", pointwise_layer(base, F=2, C=5)),
+                        ("edges_p56", pointwise_layer(base, rows=7, cols=8))):
+        cases.append((name, layer, *qwgrad_edge_inputs(layer, 13, gen)))
+    return cases
+
+
+def qwgrad_macs(layer, batch: int) -> int:
+    F_, _, _, C = layer.filters.shape
+    return batch * F_ * C * layer.geom.out_rows * layer.geom.out_cols
+
+
+def qwgrad_checks(dev, graph, batch: int = 1024) -> dict:
+    """``qwgrad`` on the card against its plain version at ``qwgrad_cases``
+    (entries that differ, each case); at person_detect's four shapes, ms
+    beside the plain version's and beside the bound: the larger of the
+    bytes read and written at HBM rate and the int32 multiply-adds at
+    ``INT32_MACS_PER_S`` (the divides, one an entry and sample, add ~8
+    instructions each on top).  No PyTorch call computes the fold."""
+    from microflow_tpu_torch.kernels.qwgrad import qwgrad, qwgrad_reference
+
+    gen = torch.Generator().manual_seed(26)
+    rows, wrong = [], {}
+    for name, layer, x, md, acc in qwgrad_cases(graph, batch, gen):
+        x, md, acc = x.to(dev), md.to(dev), acc.to(dev)
+        got, want = qwgrad(layer, x, md, acc), qwgrad_reference(layer, x, md, acc)
+        wrong[name] = int((got != want).sum())
+        if name.startswith("layer"):
+            nbytes = md.numel() * 4 + x.numel() + 2 * acc.numel() * 4
+            rows.append({"layer": name, "shape": {"B": x.shape[0], "P": md.shape[1] * md.shape[2],
+                                                  "F": md.shape[-1], "C": x.shape[-1]},
+                         "ms": time_ms(lambda: qwgrad(layer, x, md, acc), 20),
+                         "plain_ms": time_ms(lambda: qwgrad_reference(layer, x, md, acc), 3,
+                                             warmup=1),
+                         "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                         qwgrad_macs(layer, x.shape[0]) / INT32_MACS_PER_S) * 1e3})
+        del x, md, acc, got, want
+    torch.cuda.empty_cache()
+    if any(wrong.values()):
+        raise AssertionError(f"qwgrad differs from its plain version: {wrong}")
+    return {"entries_wrong": wrong, "max_abs_err": 0, "batch": batch, "per_layer": rows,
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "instructions",
+            "library_ms": None}
+
+
+def wgrad_step_check(dev, batch: int = 64, steps: int = 3) -> dict:
+    """person_detect_trainable(10) on the card (its 1x1 convs' weight
+    gradients through ``qwgrad``, the first step eager, the others
+    replayed) against the same on the CPU (plain torch) from the same
+    params: outputs, grads and params bit-equal after every step."""
+    mc = person_detect_trainable(10, backend="pallas", device=dev)
+    mh = person_detect_trainable(10, device="cpu")
+    mh.params = {k: {kk: v.cpu() for kk, v in d.items()} for k, d in mc.params.items()}
+    gen = torch.Generator().manual_seed(27)
+    before = {n: COUNTERS[n] for n in (WGRAD_FOLDS, WGRAD_PLAIN)}
+    for step in range(steps):
+        xq, gt = train_batch(mh, batch, gen)
+        out = mc.predict_quantized_train(xq.to(dev), gt.to(dev), TRAIN_LR)
+        want = mh.predict_quantized_train(xq, gt, TRAIN_LR)
+        if not torch.equal(out.cpu(), want):
+            raise AssertionError(f"card vs CPU trainer: output of step {step} differs")
+        _same_state({k: {kk: v.cpu() for kk, v in d.items()} for k, d in mc.grads.items()},
+                    mh.grads, f"card vs CPU trainer, grads after step {step}")
+        mc.update_layers(batch, TRAIN_LR)
+        mh.update_layers(batch, TRAIN_LR)
+        _same_state({k: {kk: v.cpu() for kk, v in d.items()} for k, d in mc.params.items()},
+                    mh.params, f"card vs CPU trainer, params after update {step}")
+    counted = {n: COUNTERS[n] - before[n] for n in before}
+    want = {WGRAD_FOLDS: 4 * steps, WGRAD_PLAIN: 4 * steps}  # the card's, then the CPU's
+    if counted != want:
+        raise AssertionError(f"wgrad counters {counted}, expected {want}")
+    return {"batch": batch, "steps": steps, "counters": counted}
+
+
 # --- training -----------------------------------------------------------------
 
 # (model, gradient_mode): the three bundled models' reference training
@@ -1877,7 +2045,8 @@ def entry_points(dev, rng) -> dict:
                               "--save", ck, "--export", tfl])
         torch.cuda.synchronize()
         train_launches = dict(LAUNCHES)
-        if trained.backend != "pallas" or set(train_launches) != {"qgemm", "qdwconv", "qsoftmax"}:
+        if trained.backend != "pallas" or set(train_launches) != {"qgemm", "qdwconv", "qsoftmax",
+                                                                  "qwgrad"}:
             raise AssertionError(f"CLI train ran {trained.backend}, launched {train_launches}")
         xq = trained.quantize_input(x)
         want = trained.predict_inner(xq)
@@ -2741,18 +2910,24 @@ def main() -> int:
     t = time.time()
     train = train_checks(dev)
     pd_step = train["person_detect/quantized"]["launches"]
-    if any(n != PD_FORWARD for n in pd_step["pallas"]) or any(pd_step["xla"]):
+    if (any(n != {**PD_FORWARD, **PD_BACKWARD} for n in pd_step["pallas"])
+            or any(n != PD_BACKWARD for n in pd_step["xla"])):
         raise AssertionError(f"person_detect train steps launched {pd_step}, expected "
-                             f"{PD_FORWARD} a step through pallas and nothing through xla")
+                             f"{PD_FORWARD} and {PD_BACKWARD} a step through pallas and "
+                             f"{PD_BACKWARD} through xla")
     kinds = {case: res["steps"] for case, res in train.items()}
     if any(k != {"graph": 2, "eager": 1} for case in kinds.values() for k in case.values()):
         raise AssertionError(f"train steps {kinds}: expected the first eager and the other "
                              "two replayed as CUDA graphs, a case and backend")
     torch.cuda.empty_cache()
+    wgrad = qwgrad_checks(dev, trainer("person_detect", "xla", "quantized", dev).graph)
+    wgrad_step = wgrad_step_check(dev)
+    torch.cuda.empty_cache()
     emit({"phase": "train", "batch": 256, "steps": 3, "lr": TRAIN_LR,
           "tolerance": "bit-equal (pallas vs xla: grads after every step, params after "
-          "every update)", "cases": train,
-          "person_detect_step_launches": pd_step["pallas"][0], "graph_and_eager_steps": kinds,
+          "every update; qwgrad vs its plain version; the card's trainer vs the CPU's)",
+          "cases": train, "person_detect_step_launches": pd_step["pallas"][0],
+          "graph_and_eager_steps": kinds, "qwgrad": wgrad, "card_vs_cpu_steps": wgrad_step,
           "timing": time_training(dev, smi), "seconds": round(time.time() - t, 1)})
     torch.cuda.empty_cache()
     # 8. the user-facing entry points
@@ -2767,7 +2942,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 11. MobileNetV2: the residual graph walk, qadd and qsoftmax
     residual = residual_checks(dev, rng, smi)
-    launches.update(qadd=residual["launches"]["qadd"], qsoftmax=residual["launches"]["qsoftmax"])
+    launches.update(qadd=residual["launches"]["qadd"], qsoftmax=residual["launches"]["qsoftmax"],
+                    qwgrad=pd_step["xla"][0]["qwgrad"])
     emit({"phase": "residual", "tolerance": "bit-equal (max_abs_err 0)", **residual})
     torch.cuda.empty_cache()
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
@@ -2779,7 +2955,8 @@ def main() -> int:
                   "colfc": timing_whole["colfc_sine"],
                   "megakernel": timing_whole["megakernel_person_detect"],
                   "packed": timing_whole["packed_person_detect"],
-                  "qadd": residual["qadd"], "qsoftmax": residual["qsoftmax"]}
+                  "qadd": residual["qadd"], "qsoftmax": residual["qsoftmax"],
+                  "qwgrad": wgrad}
     emit({"kernels": [
         {"name": k, "route": "cuda", **KERNEL_INFO[k], "launches": launches[k],
          "max_abs_err": max(errs.get(k, 0), per_kernel[k]["max_abs_err"]),

@@ -52,6 +52,7 @@ SIGNATURES = {
     "packed": ("mf_packed", [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P]),
     "qadd": ("mf_qadd", [_P, _P, _P, _L] + [_I] * 13 + [_P]),
     "qsoftmax": ("mf_qsoftmax", [_P, _P, _L, _I, _F, _F, _I, _P]),
+    "qwgrad": ("mf_qwgrad", [_P, _P, _P, _P] + [_I] * 6 + [_P]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

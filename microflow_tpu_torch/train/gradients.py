@@ -97,7 +97,7 @@ def activity_mask(out_q: torch.Tensor, activation: FusedActivation, out_scale, o
     return (val > 0) & (val < q6)
 
 
-def _mask(layer, out_q, d_out, raw: bool = False) -> torch.Tensor:
+def mask_d_out(layer, out_q, d_out, raw: bool = False) -> torch.Tensor:
     mask = activity_mask(out_q, layer.activation, layer.out_q.scale0, layer.out_q.zp0, raw=raw)
     return torch.where(mask, d_out, torch.zeros((), dtype=d_out.dtype, device=d_out.device))
 
@@ -120,7 +120,7 @@ def fc_weight_sums(layer: FullyConnectedLayer, x_q, out_q, d_out):
     the wrap to i32: (dW int64 [K,N], the masked dOut's column sums int64
     [N]).  Over rows of x_q's columns (a slice of K) and over chunks of the
     batch they add up to the whole: the sharded step sums them so."""
-    md_w = _mask(layer, out_q, d_out)
+    md_w = mask_d_out(layer, out_q, d_out)
     xc = x_q.to(torch.int32) - layer.in_q.zp0
     return int_dot(xc.T, md_w), md_w.to(torch.int64).sum(0)
 
@@ -129,7 +129,7 @@ def fc_input_grad(layer: FullyConnectedLayer, out_q, weights, d_out):
     """dIn i32 [B,K] of the FC backward (``weights`` [K,N], or a slice of
     its rows for those columns of dIn); it masks on the raw quantized output
     (``gradient_fully_connected.rs:171-177``)."""
-    md_in = _mask(layer, out_q, d_out, raw=True)
+    md_in = mask_d_out(layer, out_q, d_out, raw=True)
     wc = weights.to(torch.int32) - layer.w_q.zp0
     return wrap_i32(int_dot(md_in, wc.T))
 
@@ -143,7 +143,7 @@ def fc_backward_float(layer: FullyConnectedLayer, x_q, out_q, weights, d_out_f32
 
     Returns (dW f32 [K,N], bias_grad f32 [N], dIn f32 [B,K])."""
     dev = x_q.device
-    md_w = _mask(layer, out_q, d_out_f32)
+    md_w = mask_d_out(layer, out_q, d_out_f32)
     xd = const_f32(layer.in_q.scale0, dev) * (f32(x_q) - const_f32(layer.in_q.zp0, dev))
     dW = xd.T @ md_w
     # the scale factor is commented out in the reference
@@ -151,7 +151,7 @@ def fc_backward_float(layer: FullyConnectedLayer, x_q, out_q, weights, d_out_f32
     bias_grad = md_w.sum(0)
     # the input grad masks on the RAW quantized output (the integer path's
     # quirk, :171-177 vs :206-212)
-    md_in = _mask(layer, out_q, d_out_f32, raw=True)
+    md_in = mask_d_out(layer, out_q, d_out_f32, raw=True)
     wd = const_f32(layer.w_q.scale0, dev) * (f32(weights) - const_f32(layer.w_q.zp0, dev))
     return dW, bias_grad, md_in @ wd.T
 
@@ -205,40 +205,50 @@ def conv_backward_sample(layer: Conv2DLayer, x_q, out_q, weights, d_out, w_zp_ve
     x_q [B,H,W,C], out_q/d_out [B,OH,OW,F] -> (dW_q int8 [B,F,KH,KW,C],
     bias_grad f32 [B,F], dIn i32 [B,H,W,C]).  The contractions are one
     batched matmul a tap; bit-equal to :func:`conv_backward_sample_scatter`."""
-    geom = layer.geom
-    F_, KH, KW, C = layer.filters.shape
-    B, P = x_q.shape[0], geom.out_rows * geom.out_cols
-    dev = x_q.device
-    md = _mask(layer, out_q, d_out)  # [B, OH, OW, F] i32
-    md_t = md.reshape(B, P, F_).transpose(1, 2)  # [B, F, P]
-    amd_t = md_t.abs()
-
-    # weights gradient, normalized per tap by the sum of |dOut| where valid
-    xc = _centred_input(layer, x_q)
-    taps = _taps(geom, KH, KW)
-    dw_acc = torch.stack([int_dot(md_t, xc[:, rs, cs].reshape(B, P, C))
-                          for _, _, rs, cs in taps], dim=2).reshape(B, F_, KH, KW, C)
-    valid = const_int(geom.valid_mask_plane().reshape(P, KH * KW), dev, torch.int32)
-    norm_w = wrap_i32(int_dot(amd_t, valid)).reshape(B, F_, KH, KW)
-    dw_q = sat_cast_nan0(round_away(f32(wrap_i32(dw_acc)) / f32(norm_w)[..., None]), torch.int8)
-
+    md = mask_d_out(layer, out_q, d_out)  # [B, OH, OW, F] i32
     # bias gradient: masked sum / signed total (``gradient_conv_2d.rs:251-301``)
     norm_b = exact_f32_sum(f32(d_out), (1, 2, 3))
     bias_grad = f32(wrap_i32(md.to(torch.int64).sum((1, 2)))) / norm_b[:, None]
+    return (conv_weight_grad_sample(layer, x_q, md), bias_grad,
+            conv_input_grad(layer, md, weights, w_zp_vec))
 
-    # input gradient: the transpose of the forward taps, normalized per
-    # element by the same scatter of |dOut|
+
+def conv_weight_grad_sample(layer: Conv2DLayer, x_q, md) -> torch.Tensor:
+    """The weight half of :func:`conv_backward_sample`: x_q [B,H,W,C] and
+    the masked dOut ``md`` [B,OH,OW,F] i32 -> dW_q int8 [B,F,KH,KW,C], each
+    sample's gradient normalized per tap by its sum of |dOut| where valid,
+    rounded and saturated."""
+    geom = layer.geom
+    F_, KH, KW, C = layer.filters.shape
+    B, P = x_q.shape[0], geom.out_rows * geom.out_cols
+    md_t = md.reshape(B, P, F_).transpose(1, 2)  # [B, F, P]
+    xc = _centred_input(layer, x_q)
+    dw_acc = torch.stack([int_dot(md_t, xc[:, rs, cs].reshape(B, P, C))
+                          for _, _, rs, cs in _taps(geom, KH, KW)],
+                         dim=2).reshape(B, F_, KH, KW, C)
+    valid = const_int(geom.valid_mask_plane().reshape(P, KH * KW), x_q.device, torch.int32)
+    norm_w = wrap_i32(int_dot(md_t.abs(), valid)).reshape(B, F_, KH, KW)
+    return sat_cast_nan0(round_away(f32(wrap_i32(dw_acc)) / f32(norm_w)[..., None]), torch.int8)
+
+
+def conv_input_grad(layer: Conv2DLayer, md, weights, w_zp_vec) -> torch.Tensor:
+    """The input half of :func:`conv_backward_sample`: dIn i32 [B,H,W,C]
+    from the masked dOut ``md`` [B,OH,OW,F] i32, the transpose of the
+    forward taps, normalized per element by the same scatter of |dOut|."""
+    geom = layer.geom
+    F_, KH, KW, C = layer.filters.shape
+    B, dev = md.shape[0], md.device
     wc = weights.to(torch.int64) - _channels(w_zp_vec, dev)[:, None, None, None]
-    md_p = md.reshape(B, P, F_)
-    amd_f = amd_t.to(torch.int64).sum(1).reshape(B, geom.out_rows, geom.out_cols, 1)
+    md_p = md.reshape(B, geom.out_rows * geom.out_cols, F_)
+    amd_f = md.abs().to(torch.int64).sum(-1, keepdim=True)
     d_inp = _frame(geom, KH, KW, B, C, dev)
     n_inp = _frame(geom, KH, KW, B, 1, dev)
-    for m, n, rs, cs in taps:
+    for m, n, rs, cs in _taps(geom, KH, KW):
         d_inp[:, rs, cs] += int_dot(md_p, wc[:, m, n, :]).reshape(
             B, geom.out_rows, geom.out_cols, C)
         n_inp[:, rs, cs] += amd_f
     d_in = round_away(f32(wrap_i32(_crop(geom, d_inp))) / f32(wrap_i32(_crop(geom, n_inp))))
-    return dw_q, bias_grad, sat_cast_nan0(d_in, torch.int32)
+    return sat_cast_nan0(d_in, torch.int32)
 
 
 def conv_backward_sample_scatter(layer: Conv2DLayer, x_q, out_q, weights, d_out, w_zp_vec):
@@ -249,8 +259,8 @@ def conv_backward_sample_scatter(layer: Conv2DLayer, x_q, out_q, weights, d_out,
     in_zp = layer.in_q.zp0
     F_, KH, KW, C = layer.filters.shape
     B, dev = x_q.shape[0], x_q.device
-    md = _mask(layer, out_q, d_out).to(torch.int64)  # [B, OH, OW, F]
-    amd = _mask(layer, out_q, d_out).abs().to(torch.int64)
+    md = mask_d_out(layer, out_q, d_out).to(torch.int64)  # [B, OH, OW, F]
+    amd = mask_d_out(layer, out_q, d_out).abs().to(torch.int64)
 
     patches = extract_patches(x_q, geom, pad_value=in_zp)  # [B,OH,OW,KH,KW,C]
     centered = patches.to(torch.int64) - in_zp
@@ -297,7 +307,7 @@ def dwconv_backward_sample(layer: DepthwiseConv2DLayer, x_q, out_q, weights, d_o
     B, dev = x_q.shape[0], x_q.device
     # one scalar norm a sample, over ALL |dOut|, unmasked (lines 103-109/190-196)
     norm = exact_f32_sum(torch.abs(f32(d_out)), (1, 2, 3))[:, None, None, None]
-    md = _mask(layer, out_q, d_out).to(torch.int64)  # [B, OH, OW, CH]
+    md = mask_d_out(layer, out_q, d_out).to(torch.int64)  # [B, OH, OW, CH]
 
     xc = _centred_input(layer, x_q)
     taps = _taps(geom, KH, KW)
@@ -327,7 +337,7 @@ def dwconv_backward_sample_scatter(layer: DepthwiseConv2DLayer, x_q, out_q, weig
     KH, KW, CH = layer.weights.shape
     B, dev = x_q.shape[0], x_q.device
     norm = exact_f32_sum(torch.abs(f32(d_out)), (1, 2, 3))[:, None, None, None]
-    md = _mask(layer, out_q, d_out).to(torch.int64)
+    md = mask_d_out(layer, out_q, d_out).to(torch.int64)
 
     patches = extract_patches(x_q, geom, pad_value=in_zp)  # [B,OH,OW,KH,KW,CH]
     centered = patches.to(torch.int64) - in_zp
@@ -354,7 +364,7 @@ def avgpool_backward_sample(layer: AveragePool2DLayer, out_q, d_out):
     (``gradient_average_pool.rs:10-73``): out_q/d_out [B,OH,OW,C] -> dIn
     i32 [B,H,W,C]."""
     geom = layer.geom
-    md = _mask(layer, out_q, d_out).to(torch.int64)
+    md = mask_d_out(layer, out_q, d_out).to(torch.int64)
     d_inp = _frame(geom, geom.k_rows, geom.k_cols, md.shape[0], md.shape[-1], md.device)
     for _, _, rs, cs in _taps(geom, geom.k_rows, geom.k_cols):
         d_inp[:, rs, cs] += md

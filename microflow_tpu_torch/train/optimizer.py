@@ -213,6 +213,12 @@ def fold_is_plain_sum(bound: int, batch: int) -> bool:
     return bound + fold_margin(batch) < 2**31
 
 
+def plain_fold(dW_b, accum_i32):
+    """``accum_i32`` plus the sum of the per-sample gradients [B, *W] over the
+    batch, wrapped to i32: the fold where it cannot saturate."""
+    return (accum_i32.to(torch.int64) + dW_b.to(torch.int64).sum(0)).to(torch.int32)
+
+
 def accumulate_gradient_4d_fold(dW_b, accum_i32, bound: int | None = None):
     """Batch-order saturating fold of per-sample gradients [B, *W] into
     ``accum_i32``: the reference's per-sample ``accumulate_gradient_4D``
@@ -229,7 +235,7 @@ def accumulate_gradient_4d_fold(dW_b, accum_i32, bound: int | None = None):
         if bound is None:
             bound = int(read_host(acc.to(torch.int64).abs().max())) if acc.numel() else 0
         if fold_is_plain_sum(bound, dW_b.shape[0]):
-            return (acc.to(torch.int64) + dW_b.to(torch.int64).sum(0)).to(torch.int32)
+            return plain_fold(dW_b, acc)
     for i in range(dW_b.shape[0]):
         acc = saturating_add_i32(acc, dW_b[i])
     return acc

@@ -22,8 +22,11 @@ API parity:
 The forward runs the model's backend: ``"xla"`` (the default, as in the
 JAX package) or ``"pallas"``, the per-op kernels ``qgemm`` and
 ``qdwconv`` on CUDA.  The backward and the update are plain torch on the
-model's device.  The whole-network backends bake the weights into their
-kernels' plans and so cannot train: asking for one raises.
+model's device, but for the weight gradients of 1x1 convs on CUDA, which
+the ``qwgrad`` kernel folds into their accumulators where the fold is the
+plain sum (``kernels/qwgrad.py::takes_kernel``).  The whole-network
+backends bake the weights into their kernels' plans and so cannot train:
+asking for one raises.
 
 On CUDA the step's three phases replay as CUDA graphs (``graphs.py``):
 the forward with the dequantize of the loss output, the backward with the
@@ -37,10 +40,14 @@ model's ``params`` and ``grads`` are then copies made when first asked for
 (no later step writes a tensor handed out), and a tree assigned or written
 between steps is copied in before the next replay.  ``utils.trace``
 counts each step that replayed all three phases
-(``mft.train.graph_steps``) and each other one (``mft.train.eager_steps``).
+(``mft.train.graph_steps``) and each other one (``mft.train.eager_steps``),
+and a step's conv layers by the way their weight gradients were folded
+(``mft.train.wgrad_folds``, ``mft.train.wgrad_plain``).
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -65,6 +72,7 @@ from ..compiler.ir import (
 from ..core.numerics import as_device, const_f32, f32, read_host, torch_dtype
 from ..core.quantize import dequantize, quantize
 from ..core.tensor import reshape_2d
+from ..kernels import qwgrad
 from ..utils import trace
 from . import gradients, graphs, losses, optimizer
 
@@ -192,6 +200,11 @@ class TrainableModel(FoldBound, CompiledModel):
         # to the end of update_layers, and how many of its phases replayed
         self._step = None
         self._replayed = 0
+        # how many conv layers the newest backward (run, or captured) folded
+        # through the ``qwgrad`` kernel and through plain torch, and those of
+        # the step under way, counted when it ends
+        self._wgrad_paths = Counter()
+        self._step_paths = Counter()
 
     # --- state: the model's own trees, or the graphs' static ones ---
 
@@ -284,6 +297,7 @@ class TrainableModel(FoldBound, CompiledModel):
 
         # backward in reverse layer order (T1's token prepending)
         grads = {k: dict(v) for k, v in grads.items()}
+        paths = self._wgrad_paths = Counter()
         for layer in reversed(self._backward_layers):
             key = f"layer{layer.index}"
             lg = grads.get(key)
@@ -306,14 +320,25 @@ class TrainableModel(FoldBound, CompiledModel):
                         g = g.reshape(x_in.shape)
             elif isinstance(layer, Conv2DLayer):
                 with trace.Span("mft.train.backward.conv"):
-                    dW_b, _, g = gradients.conv_backward_sample(
-                        layer, x_in, y_out, params[key]["weights"], g, self._wzp[layer.index])
-                    # per-sample saturating accumulation, in batch order; the
-                    # conv bias update is disabled in the reference
-                    # (gradient_conv_2d.rs:63 commented out)
-                    with trace.Span("mft.train.fold"):
-                        lg["weights_gradient"] = optimizer.accumulate_gradient_4d_fold(
-                            dW_b, lg["weights_gradient"], bound)
+                    # the conv bias update is disabled in the reference
+                    # (gradient_conv_2d.rs:63 commented out): its gradient
+                    # goes unused
+                    weights, wzp = params[key]["weights"], self._wzp[layer.index]
+                    if qwgrad.takes_kernel(layer, x_in, self.gradient_mode, bound):
+                        md = gradients.mask_d_out(layer, y_out, g)
+                        with trace.Span("mft.train.fold"):
+                            lg["weights_gradient"] = qwgrad.qwgrad(
+                                layer, x_in, md, lg["weights_gradient"])
+                        g = gradients.conv_input_grad(layer, md, weights, wzp)
+                        paths[trace.WGRAD_FOLDS] += 1
+                    else:
+                        dW_b, _, g = gradients.conv_backward_sample(
+                            layer, x_in, y_out, weights, g, wzp)
+                        # per-sample saturating accumulation, in batch order
+                        with trace.Span("mft.train.fold"):
+                            lg["weights_gradient"] = optimizer.accumulate_gradient_4d_fold(
+                                dW_b, lg["weights_gradient"], bound)
+                        paths[trace.WGRAD_PLAIN] += 1
             elif isinstance(layer, DepthwiseConv2DLayer):
                 with trace.Span("mft.train.backward.dwconv"):
                     dW_b, bias_b, g = gradients.dwconv_backward_sample(
@@ -392,7 +417,7 @@ class TrainableModel(FoldBound, CompiledModel):
         backward = graphs.capture("backward", backward, pool)
         if backward is graphs.FAILED:
             return backward
-        return x, gt, forward, backward
+        return x, gt, forward, backward, self._wgrad_paths
 
     def _replayed_step(self, xq: torch.Tensor, gt_q: torch.Tensor, bound: int | None):
         """The step's forward and backward replayed, and the output; None
@@ -412,7 +437,7 @@ class TrainableModel(FoldBound, CompiledModel):
             entry = steps[key] = self._capture_step(xq, gt_q, bound)
             if entry is graphs.FAILED:
                 return None
-        x, gt, forward, backward = entry
+        x, gt, forward, backward, self._step_paths = entry
         with trace.Span("mft.train.forward"):
             x.copy_(xq)
             out = forward.replay()[1]
@@ -429,6 +454,7 @@ class TrainableModel(FoldBound, CompiledModel):
             acts, out = self._forward_phase(params, xq)
         with trace.Span("mft.train.backward"):
             self._grads = self._backward_phase(params, acts, gt_q, self.grads, bound)
+        self._step_paths = self._wgrad_paths
         return out
 
     def _capture_update(self, batch_size: int, lr: float):
@@ -517,7 +543,9 @@ class TrainableModel(FoldBound, CompiledModel):
         step, self._step = self._step, None
         if step is not None:
             trace.count(trace.GRAPH_STEPS if self._replayed == 3 else trace.EAGER_STEPS)
-            self._replayed = 0
+            for name, n in self._step_paths.items():
+                trace.count(name, n)
+            self._replayed, self._step_paths = 0, Counter()
             step.close()
 
     def quantize_target(self, y) -> torch.Tensor:

@@ -32,6 +32,10 @@ the program makes through ``core.numerics``' ``const_f32``, ``const_int``,
 ``as_device`` and ``read_host``; ``COUNTERS[GRAPH_STEPS]``, each train
 step that replayed its forward, backward and update as CUDA graphs, and
 ``COUNTERS[EAGER_STEPS]``, each other train step (``train/trainer.py``);
+``COUNTERS[WGRAD_FOLDS]`` and ``COUNTERS[WGRAD_PLAIN]``, each conv layer of
+a train step whose weight gradient was folded into its accumulator by the
+``qwgrad`` kernel, or by plain torch (a replayed step counts the layers
+its capture took each way);
 ``COUNTERS[LIVE_PEAK]``, a level and not a count: the most activation
 bytes that the newest forward of a graph with wiring held at once
 (``CompiledModel._walk``, which also opens a span ``ADD_SPAN`` around each
@@ -54,11 +58,14 @@ CAP = 8192  # records kept a span name, the newest
 HOST_WAITS = "mft.host_waits"
 GRAPH_STEPS = "mft.train.graph_steps"
 EAGER_STEPS = "mft.train.eager_steps"
+WGRAD_FOLDS = "mft.train.wgrad_folds"
+WGRAD_PLAIN = "mft.train.wgrad_plain"
 LIVE_PEAK = "mft.graph.live_peak_bytes"
 ADD_SPAN = "mft.op.add"
 
 LAUNCHES: Counter = Counter()
-COUNTERS: Counter = Counter({HOST_WAITS: 0, GRAPH_STEPS: 0, EAGER_STEPS: 0})
+COUNTERS: Counter = Counter({HOST_WAITS: 0, GRAPH_STEPS: 0, EAGER_STEPS: 0, WGRAD_FOLDS: 0,
+                             WGRAD_PLAIN: 0})
 
 
 class Record(NamedTuple):
@@ -79,10 +86,10 @@ _profiling = torch._C._autograd._profiler_enabled
 record_function = torch._C._profiler._RecordFunctionFast
 
 
-def count(name: str) -> None:
-    """Add one to ``COUNTERS[name]``."""
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``COUNTERS[name]``."""
     with _lock:
-        COUNTERS[name] += 1
+        COUNTERS[name] += n
 
 
 def level(name: str, value: int) -> None:

@@ -382,12 +382,13 @@ def test_training_pallas_matches_xla_on_the_card(cuda):
     """chip_smoke.py's train phase, shorter: person_detect, speech and sine
     (also in float mode) trained through ``"pallas"`` and ``"xla"`` from
     the same params stay bit-equal, every trained layer gets a gradient,
-    and a person_detect step launches the per-op kernels through
-    ``"pallas"`` only."""
+    and a person_detect step launches the per-op kernels of the forward
+    through ``"pallas"`` only, and ``qwgrad`` for its 1x1 convs through
+    both."""
     res = chip_smoke.train_checks(cuda, batch=256, steps=2)
     pd = res["person_detect/quantized"]["launches"]
-    assert all(n == chip_smoke.PD_FORWARD for n in pd["pallas"]), pd
-    assert not any(pd["xla"]), pd
+    assert all(n == {**chip_smoke.PD_FORWARD, **chip_smoke.PD_BACKWARD} for n in pd["pallas"]), pd
+    assert all(n == chip_smoke.PD_BACKWARD for n in pd["xla"]), pd
 
 
 @pytest.mark.cuda

@@ -277,4 +277,4 @@ def test_host_waits_equal_the_profilers_pageable_copies_of_a_step(cuda, monkeypa
     step(m, x, gt)  # the capture
     root, copies = profiled_step()
     assert root.waits == len(copies) == 0, sorted(set(copies))
-    assert dict(root.counts) == {trace.GRAPH_STEPS: 1}
+    assert dict(root.counts) == {trace.GRAPH_STEPS: 1, trace.WGRAD_FOLDS: 4}
