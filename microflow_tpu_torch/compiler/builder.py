@@ -103,6 +103,9 @@ from .ir import (
 )
 
 BACKENDS = frozenset({"auto", "xla", "pallas", "flat", "colfc", "fused", "hybrid", "packed"})
+# the backends whose kernels read weights baked in at build: they refuse a
+# ``params`` swap (``CompiledModel.params``) and cannot train
+BAKED_BACKENDS = frozenset({"flat", "colfc", "fused", "hybrid", "packed"})
 # PyTorch's caching allocator serves a request of at most 1 MiB from 2 MiB
 # segments.  An output of more than half of that, kept by a caller that keeps
 # every batch's output on the card (an offline scoring loop), then takes a new
@@ -471,7 +474,8 @@ class CompiledModel:
         self.device = resolve_device(device)
         self.backend, plan = select_backend(graph, backend, self.device.type)
         self._flat = self._colfc = self._packed = self._fused_forward = None
-        self.params = init_params(graph, self.device)
+        # the weights the kernels are built from (the setter refuses a baked backend)
+        self._params, self._folds = init_params(graph, self.device), {}
         per_op_layers = graph.layers if self.backend == "pallas" else []
         if self.backend == "flat":
             from ..kernels.flatpack import kernel_from_plan
@@ -508,8 +512,7 @@ class CompiledModel:
     def baked(self) -> bool:
         """Whether the backend baked the weights into its kernel's plan at
         build, so that ``params`` cannot be swapped."""
-        return any(k is not None for k in (self._flat, self._colfc, self._packed,
-                                           self._fused_forward))
+        return self.backend in BAKED_BACKENDS
 
     @property
     def params(self) -> dict:

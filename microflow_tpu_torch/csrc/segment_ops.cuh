@@ -28,8 +28,8 @@
 // contiguous bytes of its pixel for two k-steps: one LDS.128 in place of
 // four 8-way conflicting 4-byte reads when IC >= 128.  What is left to pace
 // them is the epilogue's two conversions an output on the SM's 16-a-clock
-// conversion pipe, mma.sync's rate and latency (scripts/torch_flat_ablate.py
-// times each part).
+// conversion pipe, mma.sync's rate and latency (chip_smoke.py phase 3 times
+// the epilogue's share through the raw and noround modes).
 //
 // The 3x3 depthwise convs (op_dw3, op_dw3_stem; the plan marks them
 // F_DW3) make many outputs for few multiply-adds, so what paces them is

@@ -8,7 +8,8 @@ and saturated gradient as a [B, F, 1, 1, C] tensor, through int64, float64
 and f32 intermediates, and sums it over the batch.  The kernel keeps all of
 that in registers and writes only the new accumulator.  It computes the
 plain sum, which is the fold of record only where the fold cannot
-saturate: ``takes_kernel`` is the trainer's rule for when it runs.  The JAX
+saturate: ``takes_kernel`` is the kernel's rule for what it can compute,
+which ``train.trainer.fold_path`` reads in picking a layer's fold.  The JAX
 package has no such kernel (its backward is plain ``jnp``).  CUDA tensors
 launch the kernel, CPU tensors run ``qwgrad_reference``.
 """
@@ -23,11 +24,10 @@ from . import LAUNCHES, build
 
 
 def takes_kernel(layer, x_q: torch.Tensor, gradient_mode: str, bound) -> bool:
-    """Whether the trainer folds ``layer``'s weight gradient of the batch
-    ``x_q`` through the kernel: on CUDA, quantized gradients, a 1x1,
-    stride-1, unpadded Conv2D on an int8 input, and a fold bound held as a
-    host int under which the fold is the plain sum.  Every other case runs
-    ``conv_backward_sample`` and ``accumulate_gradient_4d_fold``."""
+    """Whether the kernel can fold ``layer``'s weight gradient of the batch
+    ``x_q``: on CUDA, quantized gradients, a 1x1, stride-1, unpadded Conv2D
+    on an int8 input, and a fold bound held as a host int under which the
+    fold is the plain sum (``train.trainer.fold_path`` decides)."""
     return (x_q.device.type == "cuda" and gradient_mode == "quantized"
             and isinstance(layer, Conv2DLayer) and layer.geom.is_pointwise()
             and x_q.dtype == torch.int8 and isinstance(bound, int)

@@ -15,7 +15,8 @@ from .mesh import (
     shard_params,
     tp_spec,
 )
-from .tp import Collectives, ShardedTrainer
+from ..train.trainer import Collectives
+from .tp import ShardedTrainer
 
 __all__ = [
     "BatchServer",

@@ -29,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 from .mesh import Mesh, canonical
-from .tp import Collectives
+from ..train.trainer import Collectives
 
 BACKENDS = ("gloo", "nccl")
 TIMEOUT = datetime.timedelta(seconds=120)  # of a collective and of the rendezvous
@@ -83,12 +83,12 @@ class ProcessCollectives(Collectives):
         self.cells = list(cells)
 
     def all_reduce(self, parts: dict, axis: str) -> dict:
-        if axis == "data":
+        if axis == "data" or self.size(axis) == 1:
             return super().all_reduce(parts, axis)
         return {c: all_reduce_sum(parts[c]) for c in self.cells}
 
     def broadcast(self, parts: dict, axis: str) -> dict:
-        if axis != "data":
+        if axis != "data" and self.size(axis) > 1:
             raise NotImplementedError("a process mesh broadcasts over 'data' only")
         return super().broadcast(parts, axis)
 

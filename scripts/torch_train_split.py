@@ -55,7 +55,7 @@ def layer_inputs(m, params, acts, gt) -> dict:
         for n in names:
             setattr(gradients, n, spy(n))
         qwgrad.takes_kernel = lambda *a: False
-        m._backward_phase(params, acts, gt, m.grads, 0)
+        m._run(m._backward_phase, params, acts, gt, m.grads, 0, [gt.shape[0]])
     finally:
         for n in names:
             setattr(gradients, n, orig[n])
@@ -75,8 +75,8 @@ def main() -> int:
     m = person_detect_trainable(10, backend="pallas", device=dev)
     xq, gt = chip_smoke.train_batch(m, B, torch.Generator().manual_seed(16))
     params, grads = m.params, m.grads
-    acts, _ = m._forward_phase(params, xq)
-    parts = {"forward": chip_smoke.graph_ms(lambda: m._forward_phase(params, xq), n)}
+    acts, _ = m._run(m._forward_phase, params, xq, [B])
+    parts = {"forward": chip_smoke.graph_ms(lambda: m._run(m._forward_phase, params, xq, [B]), n)}
     layers = {}
     for i, (layer, x, out_q, w, d_out, wzp) in sorted(layer_inputs(m, params, acts, gt).items()):
         acc = grads[f"layer{i}"]["weights_gradient"]
@@ -103,15 +103,16 @@ def main() -> int:
             continue
         layers[f"layer{i}"] = {"kind": type(layer).__name__, **row}
     parts["backward"] = chip_smoke.graph_ms(
-        lambda: m._backward_phase(params, acts, gt, grads, 0), n)
+        lambda: m._run(m._backward_phase, params, acts, gt, grads, 0, [B]), n)
     takes = qwgrad.takes_kernel
     qwgrad.takes_kernel = lambda *a: False
     try:
         parts["backward_plain"] = chip_smoke.graph_ms(
-            lambda: m._backward_phase(params, acts, gt, grads, 0), n)
+            lambda: m._run(m._backward_phase, params, acts, gt, grads, 0, [B]), n)
     finally:
         qwgrad.takes_kernel = takes
-    parts["update"] = chip_smoke.graph_ms(lambda: m._update_phase(params, grads, B, LR), n)
+    parts["update"] = chip_smoke.graph_ms(lambda: m._run(m._update_phase, params, grads, B, LR),
+                                          n)
 
     def step():
         m.predict_quantized_train(xq, gt, LR)

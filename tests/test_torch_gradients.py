@@ -314,7 +314,7 @@ def test_f32_sums_of_the_trained_suffixes_stay_exact(name, monkeypatch):
                 assert bound * oh * ow * BATCH_MAX < 2**24, (name, i)  # the batch's bias sum
     seen = {}
     for fn in ("conv_backward_sample", "dwconv_backward_sample", "avgpool_backward_sample",
-               "fc_backward"):
+               "fc_weight_sums"):
         orig = getattr(tgrad, fn)
 
         def spy(layer, *args, _orig=orig):
